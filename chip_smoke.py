@@ -1,0 +1,602 @@
+"""Smoke run of the PyTorch/CUDA port on one GPU.
+
+    python3 chip_smoke.py
+
+1. prints the card's name and power limit (nvidia-smi);
+2. builds the CUDA kernels from ``gflow_tpu_torch/csrc`` (one nvcc per
+   source, in parallel) and prints the build time;
+3. holds each kernel against its plain PyTorch version on the card at the
+   canonical shapes (T = 54 x 30 = 1620 tiles of the 854x480 frame,
+   K in {96, 192}, F = 4), and times kernel, plain version and bound with
+   CUDA events;
+4. drives the port's main path — the per-frame fit of bench.py's scene
+   (854x480, 50,000 points, capacity 51,200, seed 0, M=8 / K=96) — with
+   the launch counters reset just before and read just after: a short
+   camera-only stage, a full stage with an occluded-region densify and one
+   error densify, and the next frame's camera-only stage; checks the loss
+   falls, n_alive grows by the expected count, every kernel launched, and
+   the first iteration's gradients of every parameter leaf (both stages),
+   the loss trajectory and a multi-output render match the same run on
+   the plain PyTorch versions (also on the card);
+5. times one frame at the canonical budget (150 camera + 300 full
+   iterations, occ densify at 0 and error densify every 100 x2) after one
+   warm-up frame;
+6. prints the kernels JSON line, then as its last line
+   {"ok": true, "device": {...}}.
+
+Any failure raises and exits nonzero. Without CUDA it exits 1 and prints
+no result.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+from contextlib import contextmanager
+from unittest import mock
+
+import numpy as np
+import torch
+
+# fp32 throughout, as the reference (Precision.HIGHEST); the plain
+# compositor's einsum must not drop to TF32
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+# cuBLAS needs a fixed workspace for the deterministic checks (deterministic())
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+PEAK_FP32_FLOPS = 67e12    # H100 SXM, fp32 outside the tensor cores
+PEAK_BYTES = 3.35e12       # H100 SXM HBM3
+W, H = 854, 480
+N_POINTS, CAPACITY = 50_000, 51_200
+# fp32 operations per (pixel, live slot) that the function needs, counted
+# from csrc/composite.cu: alpha 17 (dx dy 2, power 9, min+exp+mul+clamp 4,
+# masks 2); K1 adds w 1 + feat 2F + T 2, K2 adds mul+max 2. K3 evaluates
+# alpha 17, fg 2F, w 1 and T 2 once (its second pass repeats them: that is
+# the design's cost, not the function's), plus the suffix sum S_k 2 (w fg,
+# add), dalpha 5, dpower 1, moments 5, dfeat F, one add per reduced value 6+F
+OPS_K1 = lambda F: 20 + 2 * F
+OPS_K2 = lambda F: 22 + 2 * F
+OPS_K3 = lambda F: 39 + 4 * F
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps=20, warmup=3) -> float:
+    """Median time of fn() in ms, CUDA events around each call (includes
+    the host's launch time where the device waits for it)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def kernel_ms(fn, n=20, reps=5) -> float:
+    """Device time of one fn() in ms: n calls captured in a CUDA graph and
+    replayed between CUDA events, so host launch time drops out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return cuda_ms(graph.replay, reps=reps, warmup=1) / n
+
+
+def bound(flops: float, nbytes: float):
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+# ---------------------------------------------------------------------------
+# kernel phases
+# ---------------------------------------------------------------------------
+
+
+def packed_inputs(gen, T, K, F, with_cov, n_tx):
+    """Well-formed packed compositor input: per tile, up to 1.3 K depth-sorted
+    rows around the tile, PSD conics of 0.7-6 px sigma, opacity 0.05-0.99."""
+    dev = "cuda"
+    u = lambda *s: torch.rand(*s, generator=gen, device=dev)
+    t = torch.arange(T, device=dev)
+    origin = torch.stack([(t % n_tx) * 16.0, (t // n_tx) * 16.0], -1)
+    uv = origin[:, None, :] + u(T, K, 2) * 32.0 - 8.0
+    s1, s2 = 0.7 + 5.3 * u(T, K), 0.7 + 5.3 * u(T, K)
+    th = u(T, K) * math.pi
+    c, s = torch.cos(th), torch.sin(th)
+    cxx = c * c * s1 * s1 + s * s * s2 * s2 + 0.3
+    cxy = c * s * (s1 * s1 - s2 * s2)
+    cyy = s * s * s1 * s1 + c * c * s2 * s2 + 0.3
+    det = cxx * cyy - cxy * cxy
+    conic = torch.stack([cyy / det, -cxy / det, cxx / det], -1)
+    op = 0.05 + 0.94 * u(T, K, 1)
+    feat = torch.cat([u(T, K, 3), 2.0 + 4.0 * u(T, K, 1)], -1)[..., :F]
+    cols = [uv, conic, op, feat]
+    if with_cov:
+        cols.append((u(T, K, 1) < 0.4).float())
+    attrs = torch.cat(cols, -1).contiguous()
+    counts = torch.randint(0, int(1.3 * K) + 1, (T,), generator=gen, device=dev)
+    counts[torch.randperm(T, generator=gen, device=dev)[: T // 10]] = 0  # empty tiles
+    return attrs, counts.clamp_max(K).to(torch.int32).contiguous()
+
+
+def kernel_phase():
+    from gflow_tpu_torch.ops import binning, composite, cuda_raster
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n_tx, n_ty = -(-W // 16), -(-H // 16)
+    T, F = n_tx * n_ty, 4
+    rows = {}
+    for K in (96, 192):
+        bg = torch.tensor([0.0, 0.0, 0.0, 0.0], device="cuda")
+        live = None
+        for with_cov in (False, True):
+            name = "composite_fwd_cov" if with_cov else "composite_fwd"
+            attrs, counts = packed_inputs(gen, T, K, F, with_cov, n_tx)
+            live = float(counts.sum())
+            CA = attrs.shape[-1]
+            got = cuda_raster.composite_fwd(attrs, counts, bg, n_tx, with_cov)
+            want = composite.composite_packed(attrs, counts, bg, n_tx, with_cov)
+            got, want = (got, want) if with_cov else ((got,), (want,))
+            torch.cuda.synchronize()
+            err = 0.0
+            for g_, w_ in zip(got, want):
+                torch.testing.assert_close(g_, w_, atol=5e-4, rtol=1e-3)
+                err = max(err, float((g_ - w_).abs().max()))
+            if with_cov:  # coverage support must agree exactly where it is clear
+                clear = (want[1] - 0).abs() > 1e-3
+                assert torch.equal((got[1] > 0)[clear], (want[1] > 0)[clear])
+            ms = kernel_ms(lambda: cuda_raster.composite_fwd(attrs, counts, bg, n_tx, with_cov))
+            plain_ms = cuda_ms(lambda: composite.composite_packed(attrs, counts, bg, n_tx, with_cov), reps=5)
+            ops = live * 256 * (OPS_K2(F) if with_cov else OPS_K1(F))
+            nbytes = 4 * (live * CA + T + F + T * 256 * (F + int(with_cov)))
+            b_ms, b_by = bound(ops, nbytes)
+            rows[(name, K)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                   bound_ms=b_ms, bound_by=b_by)
+            log(f"# {name} K={K}: max_abs_err {err:.3e} kernel {ms:.4f} ms "
+                f"plain {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+
+        # K3 against autograd through the plain version
+        attrs, counts = packed_inputs(gen, T, K, F, False, n_tx)
+        live = float(counts.sum())
+        g = torch.randn((T, 256, F), generator=gen, device="cuda")
+        got = cuda_raster.composite_bwd(attrs, counts, bg, g, n_tx)
+
+        def plain_bwd():
+            a = attrs.detach().requires_grad_()
+            return torch.autograd.grad(composite.composite_packed(a, counts, bg, n_tx), a, g)[0]
+
+        want = plain_bwd()
+        scale = want.abs().amax(dim=(0, 1)).clamp_min(1e-12)  # per column
+        err = float((got - want).abs().max())
+        norm_err = float(((got - want) / scale).abs().max())
+        assert norm_err <= 5e-4, f"K3 normalized error {norm_err} > 5e-4"
+        ms = kernel_ms(lambda: cuda_raster.composite_bwd(attrs, counts, bg, g, n_tx))
+        plain_ms = cuda_ms(plain_bwd, reps=5)
+        CA = attrs.shape[-1]
+        b_ms, b_by = bound(live * 256 * OPS_K3(F),
+                           4 * (live * CA + T + F + T * 256 * F + T * K * CA))
+        rows[("composite_bwd", K)] = dict(max_abs_err=err, max_norm_err=norm_err, ms=ms,
+                                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        log(f"# composite_bwd K={K}: max_abs_err {err:.3e} max err normalized by max |ref| "
+            f"per column {norm_err:.3e} kernel {ms:.4f} ms "
+            f"plain {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+
+        # K4: the sorted id stream at M=8 (capacity x 8 entries)
+        L = CAPACITY * 8
+        tiles = torch.sort(torch.randint(0, T + 1, (L,), generator=gen, device="cuda",
+                                         dtype=torch.int32)).values
+        idx_s = torch.randint(0, CAPACITY, (L,), generator=gen, device="cuda",
+                              dtype=torch.int32)
+        starts = torch.searchsorted(tiles, torch.arange(T + 1, dtype=torch.int32,
+                                                        device="cuda"), out_int32=True)
+        tcounts = (starts[1:] - starts[:T]).contiguous()
+        starts = starts[:T].contiguous()
+        got = binning.pack_tile_lists(idx_s, starts, tcounts, K)
+        want = binning.pack_tile_lists_plain(idx_s, starts, tcounts, K)
+        assert torch.equal(got, want), "K4 differs from the plain gather"
+        ms = kernel_ms(lambda: binning.pack_tile_lists(idx_s, starts, tcounts, K))
+        plain_ms = cuda_ms(lambda: binning.pack_tile_lists_plain(idx_s, starts, tcounts, K))
+        read = float(tcounts.clamp_max(K).sum())
+        b_ms, b_by = bound(0.0, 4 * (read + 2 * T + T * K))
+        rows[("pack_tile_lists", K)] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                            bound_ms=b_ms, bound_by=b_by)
+        log(f"# pack_tile_lists K={K}: exact; kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+            f"bound {b_ms:.5f} ms ({b_by})")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# main path
+# ---------------------------------------------------------------------------
+
+
+def bench_scene():
+    """bench.py's scene, built by the port."""
+    from scipy.ndimage import gaussian_filter
+
+    from gflow_tpu_torch.opt.initialize import init_params_from_image
+    from gflow_tpu_torch.ops.render import RenderConfig
+
+    rng = np.random.default_rng(0)
+    img = rng.uniform(0, 1, (H, W, 3)).astype(np.float32)
+    for c in range(3):
+        img[..., c] = gaussian_filter(img[..., c], 8)
+    img = (img - img.min()) / (img.max() - img.min())
+    depth = (2 + img[..., 0]).astype(np.float32)
+    intr = np.asarray([500.0, 500.0, W / 2, H / 2], np.float32)
+    extr = np.c_[np.eye(3), np.zeros(3)].astype(np.float32)
+    params, n = init_params_from_image(img, depth, N_POINTS, CAPACITY, intr, extr,
+                                       rng=rng, device="cuda")
+    rcfg = RenderConfig.for_scene(W, H, N_POINTS, image=img)
+    assert (rcfg.max_tiles_per_gaussian, rcfg.max_per_tile) == (8, 96), rcfg
+    return img, depth, intr, params, n, rcfg
+
+
+def targets(img, depth, move=None, occ=None):
+    from gflow_tpu_torch.opt.state import Targets
+
+    z = torch.zeros((H, W), dtype=torch.bool)
+    return Targets(
+        image=torch.from_numpy(img).cuda(),
+        depth=torch.from_numpy(depth)[..., None].cuda(),
+        flow=torch.zeros((H, W, 2), device="cuda"),
+        move_mask=(z if move is None else torch.from_numpy(move)).cuda(),
+        occ_mask=(z if occ is None else torch.from_numpy(occ)).cuda(),
+    )
+
+
+def dynamics():
+    from gflow_tpu_torch.opt.losses import LossWeights
+    from gflow_tpu_torch.opt.train import StageDynamics
+
+    weights = LossWeights(rgb=1.0, depth=0.1, var=50.0, flow=0.01)
+    cam = StageDynamics(lr=1e-2, lr_camera=1e-3, weights=weights, num_points=N_POINTS)
+    full = StageDynamics(lr=1e-3, lr_camera=0.0, weights=weights, num_points=N_POINTS,
+                         densify_occ_percent=0.5, densify_err_thre=1e-2,
+                         densify_err_percent=1.0)
+    return cam, full
+
+
+@contextmanager
+def deterministic():
+    """Deterministic algorithms (index_add_ without float atomics) for the
+    correctness checks: every run then gives the same numbers, and the
+    trajectory check compares the kernels with the plain versions, not with
+    the atomics' run-to-run noise (scripts/torch_trajectory_spread.py)."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+@contextmanager
+def plain_versions():
+    """Route the main path through the kernels' plain PyTorch versions (on
+    CUDA tensors, for the comparison run only)."""
+    from gflow_tpu_torch.ops import binning, composite, cuda_raster
+
+    with mock.patch.object(cuda_raster, "packed_composite", composite.composite_packed), \
+         mock.patch.object(binning, "pack_tile_lists", binning.pack_tile_lists_plain):
+        yield
+
+
+def check_targets(img, depth):
+    """Targets of the correctness checks: a moving region (so that the next
+    frame's camera stage sees movers and K2's coverage does work) and an
+    occluded region (so that the occ densify adds points)."""
+    move = np.zeros((H, W), bool)
+    move[200:320, 300:460] = True
+    occ = np.zeros((H, W), bool)
+    occ[40:136, 600:696] = True
+    return targets(img, depth, move, occ)
+
+
+def grad_check(scene, tol=5e-4):
+    """First-iteration gradients of every parameter leaf through the kernels
+    against the plain versions, on the same inputs: the full stage from the
+    scene's init (K1 + K3 + K4), and the next frame's camera-only stage
+    after the first frame's finalize, with its moving Gaussians (K2 + K3 +
+    K4). Each leaf is held normalized by its max |ref| to `tol`. The
+    scene's init is isotropic (one scale repeated over the 3 axes), where
+    the rotate gradient is zero in exact arithmetic and both paths return
+    rounding noise; the check scales each axis by U(0.5, 1.5) so that every
+    leaf carries a real gradient. Returns {stage.leaf: normalized error}."""
+    from gflow_tpu_torch.opt.losses import flow_prior_terms
+    from gflow_tpu_torch.opt.state import Params, init_frame_state
+    from gflow_tpu_torch.opt.train import StageConfig, _forward, finalize_stage
+
+    img, depth, intr, params, n0, rcfg = scene
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = params._replace(scale=params.scale * (0.5 + torch.rand(
+        params.scale.shape, generator=gen, device="cuda")))
+    tg = check_targets(img, depth)
+    intr = torch.from_numpy(intr).cuda()
+    dyn_cam, dyn_full = dynamics()
+    n_alive = torch.tensor(n0, dtype=torch.int32, device="cuda")
+    s0 = init_frame_state(CAPACITY, device="cuda")._replace(n_alive=n_alive)
+    cfg_full = StageConfig(W=W, H=H, iterations=1, render=rcfg)
+    cfg_cam = StageConfig(W=W, H=H, iterations=1, camera_only=True, render=rcfg)
+    with torch.no_grad():
+        aux = _forward(params, n_alive, s0, tg, intr, dyn_full.weights, cfg_full)[1]
+    s1 = finalize_stage(aux["uv"], aux["depth"], params, s0, tg.move_mask, n_alive, W, H)
+    n_movers = int((~s1.still_mask_tentative[:n0]).sum())
+    assert n_movers > 0
+    errs = {}
+    for stage, cfg, state, dyn in (("full", cfg_full, s0, dyn_full),
+                                   ("camera", cfg_cam, s1, dyn_cam)):
+        prior = flow_prior_terms(state, tg, cfg.camera_only, W, H)
+
+        def grads():
+            leaves = [x.detach().requires_grad_() for x in params]
+            total = _forward(Params(*leaves), n_alive, state, tg, intr, dyn.weights, cfg,
+                             flow_prior=prior)[0]
+            return torch.autograd.grad(total, leaves, allow_unused=True)
+
+        got = grads()
+        with plain_versions():
+            want = grads()
+        for name, g_k, g_p in zip(Params._fields, got, want):
+            if g_p is None:  # a leaf the stage does not reach (camera: opacity, rgb)
+                assert g_k is None, f"{stage}.{name}"
+                continue
+            assert torch.isfinite(g_k).all(), f"{stage}.{name}"
+            ref = float(g_p.abs().max())
+            errs[f"{stage}.{name}"] = (float((g_k - g_p).abs().max()) / ref if ref > 0
+                                       else float(g_k.abs().max()))
+    log(f"# first-iteration gradients, kernels vs plain versions ({n_movers} movers in "
+        f"the camera stage), max err normalized by max |ref| per leaf (tol {tol}): "
+        f"{json.dumps(errs)}")
+    bad = {k: v for k, v in errs.items() if not v <= tol}
+    assert not bad, f"gradients differ from the plain path: {bad}"
+    return errs
+
+
+def check_run(scene, max_densify=256, iters=10):
+    """Camera-only stage, full stage (occ densify at 0, error densify after
+    iteration iters//2 - 1), next frame's camera-only stage; then a render
+    of every output. Returns (loss traces, n_alive per stage, params,
+    render)."""
+    from gflow_tpu_torch.opt.state import init_frame_state
+    from gflow_tpu_torch.opt.train import StageConfig, train_stage
+
+    img, depth, intr, params, n0, rcfg = scene
+    tg = check_targets(img, depth)
+    dyn_cam, dyn_full = dynamics()
+    state = init_frame_state(CAPACITY, device="cuda")._replace(
+        n_alive=torch.tensor(n0, dtype=torch.int32, device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cfg_cam = StageConfig(W=W, H=H, iterations=iters, camera_only=True, render=rcfg)
+    cfg_full = StageConfig(W=W, H=H, iterations=iters, render=rcfg, densify_occ=True,
+                           densify_interval=iters // 2, densify_times=1,
+                           max_densify=max_densify)
+    traces, alive = [], []
+    p, s = params, state
+    for cfg, dyn in ((cfg_cam, dyn_cam), (cfg_full, dyn_full), (cfg_cam, dyn_cam)):
+        p, s, info = train_stage(p, s, tg, intr, gen, cfg, dyn)
+        traces.append(info["loss_trace"])
+        alive.append(int(info["n_alive"]))
+        for k in ("rgb", "depth_map", "uv", "depth"):
+            assert torch.isfinite(info[k]).all(), k
+    assert info["rgb"].shape == (H, W, 3) and info["depth_map"].shape == (H, W, 1)
+    return [t.cpu() for t in traces], alive, p, render_all(scene, p, alive[-1])
+
+
+def render_all(scene, p, n_alive):
+    """Every render output of params p through ops.render."""
+    from gflow_tpu_torch.core.camera import pose_to_extr
+    from gflow_tpu_torch.ops.render import render
+    from gflow_tpu_torch.opt.train import _activate
+
+    intr, rcfg = scene[2], scene[5]
+    scale, rotate, opacity, rgb = _activate(p, n_alive)
+    out = render(p.xyz, scale, rotate, opacity, rgb, torch.from_numpy(intr),
+                 pose_to_extr(p.pose), 0.0, W, H,
+                 outputs=("rgb", "depth_map", "depth_map_color", "acc", "center"),
+                 config=rcfg)
+    return {k: v.detach() for k, v in out.items()}
+
+
+def main_path(scene):
+    """The correctness checks, under deterministic algorithms."""
+    with deterministic():
+        return _main_path(scene)
+
+
+def _main_path(scene):
+    from gflow_tpu_torch.ops import _build
+
+    img, depth, intr, params, n0, rcfg = scene
+    grad_check(scene)
+    with plain_versions():
+        plain_traces, plain_alive, _, _ = check_run(scene)
+    _build.LAUNCHES.clear()
+    traces, alive, p, out = check_run(scene)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    log(f"# main path launches: {launches}")
+    for name in _build.KERNELS:
+        assert launches.get(name, 0) > 0, f"kernel {name} never launched on the main path"
+
+    # both densify events saturate max_densify=256 (occ: 50,000 x 9,216/409,920
+    # x 0.5 = 562 points; error: > 0.5% of pixels above 1e-2 at this stage)
+    assert alive == [n0, n0 + 512, n0 + 512], alive
+    assert alive == plain_alive, (alive, plain_alive)
+    for tr in traces:
+        assert torch.isfinite(tr).all()
+    assert float(traces[1][-1]) < float(traces[1][0]), traces[1]
+    # a sanity bound (grad_check holds the gradients tightly): kernel and
+    # plain sums differ in order (~1e-6 rel); Adam turns such differences
+    # into lr-sized steps where |g| ~ 0, most visibly on the 7 pose
+    # parameters of the camera-only stage, so over 10 iterations per stage
+    # the loss is held to 1e-2 relative (deterministic, so the same number
+    # on every run)
+    rel = [float(((tr - ptr).abs() / ptr.abs()).max()) for tr, ptr in zip(traces, plain_traces)]
+    for tr, ptr in zip(traces, plain_traces):
+        torch.testing.assert_close(tr, ptr, rtol=1e-2, atol=1e-5)
+    log(f"# loss trajectory matches plain path (rtol 1e-2; max rel diff per stage "
+        f"{rel}): cam {traces[0][0]:.5f}->{traces[0][-1]:.5f} full {traces[1][0]:.5f}->"
+        f"{traces[1][-1]:.5f} cam2 {traces[2][0]:.5f}->{traces[2][-1]:.5f}")
+    # the same parameters rendered through kernels and plain versions agree
+    # to the compositor tolerance
+    with plain_versions():
+        plain_out = render_all(scene, p, alive[-1])
+    for k in out:
+        torch.testing.assert_close(out[k], plain_out[k], atol=5e-4, rtol=1e-3)
+    log(f"# render {sorted(out)} matches plain path (atol 5e-4, rtol 1e-3)")
+    return launches
+
+
+def time_frame(scene):
+    """One frame at the canonical budget, after one warm-up frame."""
+    from gflow_tpu_torch.opt.state import init_frame_state
+    from gflow_tpu_torch.opt.train import StageConfig, train_stage
+    from gflow_tpu_torch.ops import _build
+
+    img, depth, intr, params, n0, rcfg = scene
+    tg = targets(img, depth)  # bench.py: all-false move and occ masks
+    dyn_cam, dyn_full = dynamics()
+    cfg_cam = StageConfig(W=W, H=H, iterations=150, camera_only=True, render=rcfg)
+    cfg_full = StageConfig(W=W, H=H, iterations=300, render=rcfg, densify_occ=True,
+                           densify_interval=100, densify_times=2,
+                           max_densify=min(CAPACITY, 16384))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = params
+    s = init_frame_state(CAPACITY, device="cuda")._replace(
+        n_alive=torch.tensor(n0, dtype=torch.int32, device="cuda"))
+    result = {}
+    for frame in ("warmup", "timed"):
+        _build.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, s, _ = train_stage(p, s, tg, intr, gen, cfg_cam, dyn_cam)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cam_launches = dict(_build.LAUNCHES)
+        p, s, info = train_stage(p, s, tg, intr, gen, cfg_full, dyn_full)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        full_launches = {k: v - cam_launches.get(k, 0) for k, v in _build.LAUNCHES.items()}
+        assert torch.isfinite(info["loss_trace"]).all()
+        result = dict(cam_ms_per_iter=(t1 - t0) / 150 * 1e3,
+                      full_ms_per_iter=(t2 - t1) / 300 * 1e3, s_per_frame=t2 - t0,
+                      cam_launches=cam_launches, full_launches=full_launches,
+                      n_alive=int(info["n_alive"]))
+        log(f"# frame {frame}: {json.dumps(result)}")
+    return result
+
+
+def profile_iterations(scene, iters=20):
+    """Where an iteration's time goes: a full stage of `iters` iterations
+    (no densify, the final forward included) from the scene's init, run
+    once unprofiled for its wall time and once under torch.profiler for its
+    device time. Device busy time is the sum of the device kernels' times;
+    the profiler slows the host, so the idle share is taken against the
+    unprofiled run of the same stage."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gflow_tpu_torch.opt.state import init_frame_state
+    from gflow_tpu_torch.opt.train import StageConfig, train_stage
+
+    img, depth, intr, params, n0, rcfg = scene
+    tg = targets(img, depth)
+    _, dyn_full = dynamics()
+    cfg = StageConfig(W=W, H=H, iterations=iters, render=rcfg)
+    state = init_frame_state(CAPACITY, device="cuda")._replace(
+        n_alive=torch.tensor(n0, dtype=torch.int32, device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    train_stage(params, state, tg, intr, gen, cfg, dyn_full)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_stage(params, state, tg, intr, gen, cfg, dyn_full)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_stage(params, state, tg, intr, gen, cfg, dyn_full)
+        torch.cuda.synchronize()
+        profiled_wall_ms = (time.perf_counter() - t0) * 1e3
+    # device kernels only: an operator's row repeats the time of its kernels
+    rows = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(r[0] for r in rows) / 1e3 / iters
+    top = [{"name": k[:70], "ms_per_iter": us / 1e3 / iters, "calls_per_iter": c / iters}
+           for us, c, k in sorted(rows, reverse=True)[:12]]
+    wall = wall_ms / iters
+    summary = {"iters": iters, "profiled_wall_ms_per_iter": profiled_wall_ms / iters,
+               "wall_ms_per_iter": wall,
+               "device_busy_ms_per_iter": busy if rows else "not measured",
+               "device_idle_share": 1.0 - busy / wall if rows else "not measured",
+               "device_kernels_per_iter": sum(r[1] for r in rows) / iters, "top": top}
+    log(f"# profile (full stage, final forward included): {json.dumps(summary)}")
+    return summary
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        sys.exit(1)
+    from gflow_tpu_torch.ops import _build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"# python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"# nvcc build of {sorted({s for s, _, _ in _build.KERNELS.values()})}: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    rows = kernel_phase()
+    scene = bench_scene()
+    launches = main_path(scene)
+    frame = time_frame(scene)
+    log(f"# canonical frame (150 camera + 300 full iterations), {smi}: "
+        f"camera {frame['cam_ms_per_iter']:.3f} ms/iter, full {frame['full_ms_per_iter']:.3f} "
+        f"ms/iter, {frame['s_per_frame']:.3f} s/frame")
+    profile_iterations(scene)
+
+    replaces = {"composite_fwd": "gflow_tpu/ops/pallas_raster.py:127",
+                "composite_fwd_cov": "gflow_tpu/ops/pallas_raster.py:127",
+                "composite_bwd": "gflow_tpu/ops/pallas_raster.py:172",
+                "pack_tile_lists": "gflow_tpu/ops/binning.py:293"}
+    kernels = []
+    for name, (src, _, _) in _build.KERNELS.items():
+        r = rows[(name, 96)]
+        row = {"name": name, "route": "cuda", "source": f"gflow_tpu_torch/csrc/{src}",
+               "replaces": replaces[name],
+               "launches": launches[name], "max_abs_err": r["max_abs_err"],
+               "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": None}
+        if "max_norm_err" in r:  # K3: also the error normalized by max |ref| per column
+            row["max_norm_err"] = r["max_norm_err"]
+        kernels.append(row)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,115 @@
+"""Build and bind the hand-written CUDA kernels (``gflow_tpu_torch/csrc``).
+
+Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into its
+own shared library with a plain C interface, on first use, and loaded with
+``ctypes``. Libraries land in ``gflow_tpu_torch/_build/`` (git-ignored),
+named by a hash of the source and the flags, so an edited source rebuilds
+and an unchanged one is reused. ``build_all`` starts one ``nvcc`` per
+source, all together.
+
+Every C entry point takes its tensors as raw device pointers plus the
+current CUDA stream, launches, and returns ``cudaGetLastError()``;
+``launch`` raises when that is nonzero and counts the launch in
+``LAUNCHES``. No ``--use_fast_math``: ``expf`` must stay accurate, because
+alpha is compared against the 1/255 threshold.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# kernel name -> (source file, C symbol, argument types before the stream)
+KERNELS = {
+    "composite_fwd": ("composite.cu", "gflow_composite_fwd",
+                      (_P, _P, _P, _P, _I, _I, _I, _I, _I)),
+    "composite_fwd_cov": ("composite.cu", "gflow_composite_fwd_cov",
+                          (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I)),
+    "composite_bwd": ("composite.cu", "gflow_composite_bwd",
+                      (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I)),
+    "pack_tile_lists": ("pack.cu", "gflow_pack_tile_lists",
+                        (_P, _P, _P, _P, _I, _I)),
+}
+
+# launches per kernel name since the last reset (``LAUNCHES.clear()``)
+LAUNCHES: collections.Counter = collections.Counter()
+
+_libs: dict[str, ctypes.CDLL] = {}
+_fns: dict = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _lib_path(source: str) -> Path:
+    h = hashlib.sha256((CSRC / source).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(sources=None) -> dict[str, Path]:
+    """Compile every missing library, one ``nvcc`` process per source, all
+    started together. Returns {source: library path}. Raises with the
+    compiler's output if any build fails."""
+    sources = sorted({s for s, _, _ in KERNELS.values()} if sources is None
+                     else set(sources))
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {s: _lib_path(s) for s in sources}
+    procs = {}
+    for s, out in paths.items():
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[s] = (subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / s)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
+    errors = []
+    for s, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed on {s} (exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, paths[s])  # atomic: readers never see a partial .so
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return paths
+
+
+def _function(name: str):
+    if name not in _fns:
+        source, symbol, argtypes = KERNELS[name]
+        if source not in _libs:
+            _libs[source] = ctypes.CDLL(str(build_all([source])[source]))
+        fn = getattr(_libs[source], symbol)
+        fn.argtypes = (*argtypes, _P)
+        fn.restype = _I
+        _fns[name] = fn
+    return _fns[name]
+
+
+def launch(name: str, *args) -> None:
+    """Launch kernel `name` on the current CUDA stream. Tensor arguments go
+    as device pointers, ints as C ints; the caller has checked shapes,
+    dtypes, devices and contiguity. Raises on a nonzero CUDA error code."""
+    fn = _function(name)
+    cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a) for a in args]
+    rc = fn(*cargs, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
+    LAUNCHES[name] += 1

@@ -4,11 +4,14 @@
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from ``gflow_tpu_torch/csrc`` (one nvcc per
-   source, in parallel) and prints the build time;
+   source, in parallel), prints the build time, ptxas's registers and
+   spills per compositor kernel and their resident blocks per SM;
 3. holds each kernel against its plain PyTorch version on the card at the
    canonical shapes (T = 54 x 30 = 1620 tiles of the 854x480 frame,
    K in {96, 192}, F = 4), and times kernel, plain version and bound with
-   CUDA events;
+   CUDA events: on synthetic packed inputs, and K1-K3 also on the main
+   path's own packed input and upstream gradient (the first iteration of
+   the canonical frame's camera-only and full stage);
 4. drives the port's main path — the per-frame fit of bench.py's scene
    (854x480, 50,000 points, capacity 51,200, seed 0, M=8 / K=96) — with
    the launch counters reset just before and read just after: a short
@@ -138,8 +141,116 @@ def packed_inputs(gen, T, K, F, with_cov, n_tx):
     return attrs, counts.clamp_max(K).to(torch.int32).contiguous()
 
 
-def kernel_phase():
-    from gflow_tpu_torch.ops import binning, composite, cuda_raster
+def fwd_row(attrs, counts, bg, n_tx, with_cov):
+    """K1 (with_cov False) or K2 against its plain version on one packed
+    input: error, kernel / plain / bound times."""
+    from gflow_tpu_torch.ops import composite, cuda_raster
+
+    T, K, CA = attrs.shape
+    F = CA - 6 - int(with_cov)
+    live = float(counts.sum())
+    got = cuda_raster.composite_fwd(attrs, counts, bg, n_tx, with_cov)
+    want = composite.composite_packed(attrs, counts, bg, n_tx, with_cov)
+    got, want = (got, want) if with_cov else ((got,), (want,))
+    torch.cuda.synchronize()
+    err = 0.0
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, atol=5e-4, rtol=1e-3)
+        err = max(err, float((g_ - w_).abs().max()))
+    if with_cov:  # coverage support must agree exactly where it is clear
+        clear = (want[1] - 0).abs() > 1e-3
+        assert torch.equal((got[1] > 0)[clear], (want[1] > 0)[clear])
+    ms = kernel_ms(lambda: cuda_raster.composite_fwd(attrs, counts, bg, n_tx, with_cov))
+    plain_ms = cuda_ms(lambda: composite.composite_packed(attrs, counts, bg, n_tx, with_cov),
+                       reps=5)
+    ops = live * 256 * (OPS_K2(F) if with_cov else OPS_K1(F))
+    nbytes = 4 * (live * CA + T + F + T * 256 * (F + int(with_cov)))
+    b_ms, b_by = bound(ops, nbytes)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                live_slots=live)
+
+
+def bwd_row(attrs, counts, bg, g, n_tx, with_cov):
+    """K3 against autograd through the plain version on one packed input
+    and upstream gradient; also checks that two launches agree bitwise."""
+    from gflow_tpu_torch.ops import composite, cuda_raster
+
+    T, K, CA = attrs.shape
+    F = CA - 6 - int(with_cov)
+    live = float(counts.sum())
+    got = cuda_raster.composite_bwd(attrs, counts, bg, g, n_tx, with_cov)
+
+    def plain_bwd():
+        a = attrs.detach().requires_grad_()
+        out = composite.composite_packed(a, counts, bg, n_tx, with_cov)
+        return torch.autograd.grad(out[0] if with_cov else out, a, g)[0]
+
+    want = plain_bwd()
+    assert torch.equal(got, cuda_raster.composite_bwd(attrs, counts, bg, g, n_tx, with_cov)), \
+        "K3 is not bitwise repeatable"
+    if with_cov:
+        assert not got[..., -1].any(), "K3 gave the mov column a gradient"
+    scale = want.abs().amax(dim=(0, 1)).clamp_min(1e-12)  # per column
+    err = float((got - want).abs().max())
+    norm_err = float(((got - want) / scale).abs().max())
+    assert norm_err <= 5e-4, f"K3 normalized error {norm_err} > 5e-4"
+    ms = kernel_ms(lambda: cuda_raster.composite_bwd(attrs, counts, bg, g, n_tx, with_cov))
+    plain_ms = cuda_ms(plain_bwd, reps=5)
+    b_ms, b_by = bound(live * 256 * OPS_K3(F),
+                       4 * (live * CA + T + F + T * 256 * F + T * K * CA))
+    return dict(max_abs_err=err, max_norm_err=norm_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, live_slots=live)
+
+
+def log_row(name, K, where, r):
+    norm = (f" max err normalized by max |ref| per column {r['max_norm_err']:.3e}"
+            if "max_norm_err" in r else "")
+    log(f"# {name} K={K} {where} ({r['live_slots']:.0f} live slots): max_abs_err "
+        f"{r['max_abs_err']:.3e}{norm} kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+def build_report():
+    """ptxas's registers and spills per compositor kernel, and the resident
+    blocks per SM of K1, K2 and K3 at F = 4 (cudaOccupancy...)."""
+    import ctypes
+    import re
+
+    from gflow_tpu_torch.ops import _build
+
+    kernels, name = {}, None
+    for line in _build.BUILD_LOGS.get("composite.cu", "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            kernels.setdefault(name, {})["spill"] = f"{m.group(1)}/{m.group(2)}"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            kernels.setdefault(name, {})["regs"] = int(m.group(1))
+    report = json.dumps(kernels) if kernels else "no build log (built by an earlier process)"
+    log(f"# ptxas composite.cu: {report}")
+    fn = _build.library("composite.cu").gflow_composite_occupancy
+    fn.argtypes, fn.restype = (ctypes.c_int, ctypes.c_int, ctypes.c_void_p), ctypes.c_int
+    occ = {}
+    for K in (96, 192):
+        info = (ctypes.c_int * 15)()
+        rc = fn(K, 4, ctypes.addressof(info))
+        assert rc == 0, f"occupancy query failed: cudaError {rc}"
+        for i, kname in enumerate(("composite_fwd", "composite_fwd_cov", "composite_bwd")):
+            b, regs, local, smem, threads = info[5 * i:5 * i + 5]
+            occ[f"{kname} K={K}"] = dict(blocks_per_sm=b, regs=regs, local_bytes=local,
+                                         smem_bytes=smem, threads=threads)
+    log(f"# occupancy at F=4: {json.dumps(occ)}")
+    return kernels, occ
+
+
+def kernel_phase(main_inputs):
+    """Every kernel against its plain version and timed, at K = 96 and 192:
+    on synthetic packed inputs, and (K1-K3) on the main path's own packed
+    input of each stage's first iteration (main_inputs)."""
+    from gflow_tpu_torch.ops import binning, cuda_raster
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     n_tx, n_ty = -(-W // 16), -(-H // 16)
@@ -147,58 +258,15 @@ def kernel_phase():
     rows = {}
     for K in (96, 192):
         bg = torch.tensor([0.0, 0.0, 0.0, 0.0], device="cuda")
-        live = None
         for with_cov in (False, True):
             name = "composite_fwd_cov" if with_cov else "composite_fwd"
             attrs, counts = packed_inputs(gen, T, K, F, with_cov, n_tx)
-            live = float(counts.sum())
-            CA = attrs.shape[-1]
-            got = cuda_raster.composite_fwd(attrs, counts, bg, n_tx, with_cov)
-            want = composite.composite_packed(attrs, counts, bg, n_tx, with_cov)
-            got, want = (got, want) if with_cov else ((got,), (want,))
-            torch.cuda.synchronize()
-            err = 0.0
-            for g_, w_ in zip(got, want):
-                torch.testing.assert_close(g_, w_, atol=5e-4, rtol=1e-3)
-                err = max(err, float((g_ - w_).abs().max()))
-            if with_cov:  # coverage support must agree exactly where it is clear
-                clear = (want[1] - 0).abs() > 1e-3
-                assert torch.equal((got[1] > 0)[clear], (want[1] > 0)[clear])
-            ms = kernel_ms(lambda: cuda_raster.composite_fwd(attrs, counts, bg, n_tx, with_cov))
-            plain_ms = cuda_ms(lambda: composite.composite_packed(attrs, counts, bg, n_tx, with_cov), reps=5)
-            ops = live * 256 * (OPS_K2(F) if with_cov else OPS_K1(F))
-            nbytes = 4 * (live * CA + T + F + T * 256 * (F + int(with_cov)))
-            b_ms, b_by = bound(ops, nbytes)
-            rows[(name, K)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                   bound_ms=b_ms, bound_by=b_by)
-            log(f"# {name} K={K}: max_abs_err {err:.3e} kernel {ms:.4f} ms "
-                f"plain {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+            rows[(name, K, "synthetic")] = fwd_row(attrs, counts, bg, n_tx, with_cov)
 
         # K3 against autograd through the plain version
         attrs, counts = packed_inputs(gen, T, K, F, False, n_tx)
-        live = float(counts.sum())
         g = torch.randn((T, 256, F), generator=gen, device="cuda")
-        got = cuda_raster.composite_bwd(attrs, counts, bg, g, n_tx)
-
-        def plain_bwd():
-            a = attrs.detach().requires_grad_()
-            return torch.autograd.grad(composite.composite_packed(a, counts, bg, n_tx), a, g)[0]
-
-        want = plain_bwd()
-        scale = want.abs().amax(dim=(0, 1)).clamp_min(1e-12)  # per column
-        err = float((got - want).abs().max())
-        norm_err = float(((got - want) / scale).abs().max())
-        assert norm_err <= 5e-4, f"K3 normalized error {norm_err} > 5e-4"
-        ms = kernel_ms(lambda: cuda_raster.composite_bwd(attrs, counts, bg, g, n_tx))
-        plain_ms = cuda_ms(plain_bwd, reps=5)
-        CA = attrs.shape[-1]
-        b_ms, b_by = bound(live * 256 * OPS_K3(F),
-                           4 * (live * CA + T + F + T * 256 * F + T * K * CA))
-        rows[("composite_bwd", K)] = dict(max_abs_err=err, max_norm_err=norm_err, ms=ms,
-                                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        log(f"# composite_bwd K={K}: max_abs_err {err:.3e} max err normalized by max |ref| "
-            f"per column {norm_err:.3e} kernel {ms:.4f} ms "
-            f"plain {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+        rows[("composite_bwd", K, "synthetic")] = bwd_row(attrs, counts, bg, g, n_tx, False)
 
         # K4: the sorted id stream at M=8 (capacity x 8 entries)
         L = CAPACITY * 8
@@ -217,11 +285,76 @@ def kernel_phase():
         plain_ms = cuda_ms(lambda: binning.pack_tile_lists_plain(idx_s, starts, tcounts, K))
         read = float(tcounts.clamp_max(K).sum())
         b_ms, b_by = bound(0.0, 4 * (read + 2 * T + T * K))
-        rows[("pack_tile_lists", K)] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                                            bound_ms=b_ms, bound_by=b_by)
-        log(f"# pack_tile_lists K={K}: exact; kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-            f"bound {b_ms:.5f} ms ({b_by})")
+        rows[("pack_tile_lists", K, "synthetic")] = dict(
+            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            live_slots=read)
+
+        for stage, rec in main_inputs[K].items():
+            a, c, b, nt, cov = (rec[k] for k in ("attrs", "counts", "bg", "n_tx", "with_cov"))
+            name = "composite_fwd_cov" if cov else "composite_fwd"
+            rows[(name, K, "main")] = fwd_row(a, c, b, nt, cov)
+            rows[("composite_bwd", K, f"main {stage}")] = bwd_row(a, c, b, rec["g"], nt, cov)
+        for (name, k, where), r in rows.items():
+            if k == K:
+                log_row(name, K, where, r)
     return rows
+
+
+@contextmanager
+def capture_packed():
+    """Record the input of every packed compositor call (and, through a
+    hook, the upstream gradient of its image) while the block runs."""
+    from gflow_tpu_torch.ops import cuda_raster
+
+    calls, packed = [], cuda_raster.packed_composite
+
+    def record(g_attrs, counts, bg, n_tx, with_cov=False):
+        res = packed(g_attrs, counts, bg, n_tx, with_cov)
+        rec = dict(attrs=g_attrs.detach().clone(), counts=counts.clone(),
+                   bg=bg.detach().clone(), n_tx=n_tx, with_cov=with_cov)
+        out = res[0] if with_cov else res
+        if out.requires_grad:
+            out.register_hook(lambda g: rec.__setitem__("g", g.detach().contiguous().clone()))
+        calls.append(rec)
+        return res
+
+    with mock.patch.object(cuda_raster, "packed_composite", record):
+        yield calls
+
+
+def main_path_inputs(scene):
+    """The packed compositor input and upstream gradient of the canonical
+    frame's first iteration of each stage: camera-only (K2 + K3, CA = 11)
+    and full (K1 + K3, CA = 10), from bench.py's scene and targets; at the
+    scene's K = 96 and, binned by the same code, at K = 192."""
+    import dataclasses
+
+    from gflow_tpu_torch.opt.losses import flow_prior_terms
+    from gflow_tpu_torch.opt.state import Params, init_frame_state
+    from gflow_tpu_torch.opt.train import StageConfig, _forward
+
+    img, depth, intr, params, n0, rcfg = scene
+    tg = targets(img, depth)
+    intr = torch.from_numpy(intr).cuda()
+    dyn_cam, dyn_full = dynamics()
+    n_alive = torch.tensor(n0, dtype=torch.int32, device="cuda")
+    state = init_frame_state(CAPACITY)._replace(n_alive=n_alive)
+    inputs = {}
+    for K in (96, 192):
+        inputs[K] = {}
+        for stage, camera_only, dyn in (("camera", True, dyn_cam), ("full", False, dyn_full)):
+            cfg = StageConfig(W=W, H=H, iterations=1, camera_only=camera_only,
+                              render=dataclasses.replace(rcfg, max_per_tile=K))
+            prior = flow_prior_terms(state, tg, camera_only, W, H)
+            leaves = [x.detach().requires_grad_() for x in params]
+            with capture_packed() as calls:
+                total = _forward(Params(*leaves), n_alive, state, tg, intr, dyn.weights, cfg,
+                                 flow_prior=prior)[0]
+                torch.autograd.grad(total, leaves, allow_unused=True)
+            (rec,) = calls
+            assert "g" in rec and rec["with_cov"] == camera_only
+            inputs[K][stage] = rec
+    return inputs
 
 
 # ---------------------------------------------------------------------------
@@ -333,7 +466,7 @@ def grad_check(scene, tol=5e-4):
     intr = torch.from_numpy(intr).cuda()
     dyn_cam, dyn_full = dynamics()
     n_alive = torch.tensor(n0, dtype=torch.int32, device="cuda")
-    s0 = init_frame_state(CAPACITY, device="cuda")._replace(n_alive=n_alive)
+    s0 = init_frame_state(CAPACITY)._replace(n_alive=n_alive)
     cfg_full = StageConfig(W=W, H=H, iterations=1, render=rcfg)
     cfg_cam = StageConfig(W=W, H=H, iterations=1, camera_only=True, render=rcfg)
     with torch.no_grad():
@@ -382,7 +515,7 @@ def check_run(scene, max_densify=256, iters=10):
     img, depth, intr, params, n0, rcfg = scene
     tg = check_targets(img, depth)
     dyn_cam, dyn_full = dynamics()
-    state = init_frame_state(CAPACITY, device="cuda")._replace(
+    state = init_frame_state(CAPACITY)._replace(
         n_alive=torch.tensor(n0, dtype=torch.int32, device="cuda"))
     gen = torch.Generator(device="cuda").manual_seed(1)
     cfg_cam = StageConfig(W=W, H=H, iterations=iters, camera_only=True, render=rcfg)
@@ -481,7 +614,7 @@ def time_frame(scene):
                            max_densify=min(CAPACITY, 16384))
     gen = torch.Generator(device="cuda").manual_seed(0)
     p = params
-    s = init_frame_state(CAPACITY, device="cuda")._replace(
+    s = init_frame_state(CAPACITY)._replace(
         n_alive=torch.tensor(n0, dtype=torch.int32, device="cuda"))
     result = {}
     for frame in ("warmup", "timed"):
@@ -522,7 +655,7 @@ def profile_iterations(scene, iters=20):
     tg = targets(img, depth)
     _, dyn_full = dynamics()
     cfg = StageConfig(W=W, H=H, iterations=iters, render=rcfg)
-    state = init_frame_state(CAPACITY, device="cuda")._replace(
+    state = init_frame_state(CAPACITY)._replace(
         n_alive=torch.tensor(n0, dtype=torch.int32, device="cuda"))
     gen = torch.Generator(device="cuda").manual_seed(2)
     train_stage(params, state, tg, intr, gen, cfg, dyn_full)  # warm-up
@@ -568,8 +701,9 @@ def main():
     log(f"# nvcc build of {sorted({s for s, _, _ in _build.KERNELS.values()})}: "
         f"{time.perf_counter() - t0:.1f} s")
 
-    rows = kernel_phase()
+    build_report()
     scene = bench_scene()
+    rows = kernel_phase(main_path_inputs(scene))
     launches = main_path(scene)
     frame = time_frame(scene)
     log(f"# canonical frame (150 camera + 300 full iterations), {smi}: "
@@ -583,7 +717,7 @@ def main():
                 "pack_tile_lists": "gflow_tpu/ops/binning.py:293"}
     kernels = []
     for name, (src, _, _) in _build.KERNELS.items():
-        r = rows[(name, 96)]
+        r = rows[(name, 96, "synthetic")]
         row = {"name": name, "route": "cuda", "source": f"gflow_tpu_torch/csrc/{src}",
                "replaces": replaces[name],
                "launches": launches[name], "max_abs_err": r["max_abs_err"],
@@ -591,6 +725,12 @@ def main():
                "bound_by": r["bound_by"], "library_ms": None}
         if "max_norm_err" in r:  # K3: also the error normalized by max |ref| per column
             row["max_norm_err"] = r["max_norm_err"]
+        # the same measurements on the main path's own input (K = 96)
+        main = {where: {k: v for k, v in rm.items() if k in ("ms", "bound_ms", "max_abs_err")}
+                for (n, k, where), rm in rows.items()
+                if n == name and k == 96 and where.startswith("main")}
+        if main:
+            row["main_path_input"] = main
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -20,14 +20,17 @@ import math
 
 import torch
 
+from .. import resolve_device
+
 
 def default_intrinsics(W: int, H: int, device=None) -> torch.Tensor:
-    """90-degree-fov default intrinsics."""
+    """90-degree-fov default intrinsics on `device` (``cuda`` unless the
+    caller passes another)."""
     fov = math.pi / 2.0
     fx = 0.5 * float(W) / math.tan(0.5 * fov)
     fy = 0.5 * float(H) / math.tan(0.5 * fov)
     return torch.tensor([fx, fy, W / 2.0, H / 2.0], dtype=torch.float32,
-                        device=device)
+                        device=resolve_device(device))
 
 
 def quat_xyzw_to_rotmat(q: torch.Tensor) -> torch.Tensor:

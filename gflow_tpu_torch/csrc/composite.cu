@@ -18,32 +18,59 @@
 //   out     = sum_k alpha_k T_k feat_k + T_final bg,  T_k = prod_{j<k}(1-alpha_j)
 //   cov     = max_k alpha_k mov_k                                    (K2 only)
 //
-// Design. One thread block per 16x16 tile, one thread per pixel. The
-// tile's live rows (at most 256 x 15 floats = 15 KB) are staged in shared
-// memory once and read by all 256 threads as broadcasts. Each thread walks
-// the slots front to back with a running transmittance; there is no early
-// termination (the reference has none; stopping at T < 1e-4 would change
-// the result). Bound: for the canonical T = 1620 tiles, K = 96, F = 4 the
-// forward reads ~6 MB and writes ~7 MB (about 4 us at 3.35 TB/s) but does
-// ~30 fp32 operations plus one expf per (pixel, live slot), some 40 M pairs
-// (about 20 us at 67 TFLOP/s): operations bind, so the design keeps every
-// byte of the slot loop in shared memory and registers.
+// Bound. For the canonical T = 1620 tiles, K = 96, F = 4 there are about
+// 85 k live slots, i.e. 22 M (pixel, slot) pairs: the bytes (a few MB) take
+// ~4 us at 3.35 TB/s, the fp32 operations ~9 us (K1) and ~18 us (K3) at 67
+// TFLOP/s. Operations bind, so the designs below cut the instructions
+// issued per pair, not bytes.
 //
-// Backward (K3). Same grid. Each thread recomputes its pixel's alphas in
-// two front-to-back passes instead of recovering T_k back to front by
-// dividing by (1 - alpha) (deep stacks underflow T to 0 and the division
-// then loses the suffix): pass 1 gives T_final and A = sum_j w_j fg_j
-// (w = alpha T, fg = feat . g); pass 2 rebuilds T_k and the prefix P_k, so
-// the suffix S_k = A - P_k; its absolute error is a few ulp of |A|. The
-// per-slot sums over the tile's 256 pixels (five moments s1..s5 of dpower,
-// s0 = sum dpower, dfeat = sum w g) are block reductions: warp shuffles,
-// then a fixed-order pass over the 8 warps in shared memory, slot chunk by
-// slot chunk. No float atomics, so K3's output is the same from run to run.
-// Its cost is ~2.5x the forward's arithmetic plus (6 + F) warp reductions
-// per live slot: operations bind.
+// Layout (all three kernels). One block of 64 threads per 16x16 tile; each
+// thread owns R = 4 neighbouring pixels, a 4x1 strip of one row, so the
+// per-slot terms in dy are shared by the strip, and a thread's output (or
+// upstream gradient) is 4F contiguous floats, moved as F float4s. The
+// tile's live rows are staged once in shared memory, each padded to a
+// multiple of 4 floats and read back as float4 broadcasts once per slot per
+// thread, not once per pixel. The conic's a and c are staged times -0.5,
+// which is exact, so power rounds as -0.5 (a dx^2 + c dy^2) - b dx dy does,
+// up to FMA contraction. F is a template parameter (1..8), so the
+// per-pixel arrays live in registers at their real size. Grid: 64-thread
+// blocks, one per tile (256-thread blocks ran in 2.5 waves); K1/K2 hold
+// all 1,620 tiles of the canonical frame resident at once, K3 (about 96
+// registers at F = 4) about 1,300, the rest following as blocks retire.
+// Tiles cost 0 to K slots, so with every tile resident the per-SM sums of
+// tile costs are uneven; PERF.md measures what that costs against the same
+// input at even counts.
+//
+// Forward (K1/K2). Each thread runs R independent transmittance chains
+// through the slots: instruction-level parallelism in the dependent
+// T *= 1 - alpha loop. No early termination: the reference has none, and
+// the coverage max of K2 goes on after T reaches 0. (Skipping a slot whose
+// alpha is 0 at every pixel of a warp, as K3 does, made K1 slower: few
+// slots are dead across a whole 16x8 half-tile.)
+//
+// Backward (K3). Each thread recomputes its pixels' alphas in two
+// front-to-back passes instead of recovering T_k back to front by dividing
+// by (1 - alpha) (deep stacks underflow T to 0 and the division then loses
+// the suffix): pass 1 gives T_final and A = sum_j w_j fg_j (w = alpha T,
+// fg = feat . g); pass 2 rebuilds T_k and the prefix P_k, so the suffix
+// S_k = A - P_k. Per slot a tile needs NV = 6 + F sums over its 256 pixels
+// (s0 = sum dpower, the moments s1..s5 of dpower, dfeat = sum w g). A
+// thread first sums its R pixels in registers; a warp then holds S =
+// 32 / NV slots x NV values (3 x 10 at F = 4) and reduce-scatters them in
+// one butterfly, 31 shuffles for up to 32 sums (a 5-shuffle tree per value
+// would take 160), after which lane l holds the warp's sum
+// of value l. The warps' sums go to shared memory and, after one barrier,
+// all 64 threads combine them (warp 0 + warp 1, a fixed order) into the
+// tile's (K, CA) output, one element each, in coalesced stores. No float
+// atomics, so K3's output is the same from run to run. What K3 skips is
+// exact for finite inputs: a slot whose alpha is 0 at every pixel of a warp
+// adds exact zeros there (w = 0, T *= 1, dpower = 0), so in both passes
+// the warp moves on after one vote; and a pixel whose alpha is masked or
+// clamped (dpower = 0) adds no moments, so it skips dalpha and its
+// division.
 //
 // Built without --use_fast_math: alpha is compared against 1/255, so expf
-// must be the accurate one.
+// must be the accurate one, and dalpha's division stays IEEE.
 
 #include <cuda_runtime.h>
 
@@ -51,11 +78,15 @@ namespace {
 
 constexpr int TILE = 16;
 constexpr int P_PIX = TILE * TILE;
-constexpr int NWARPS = P_PIX / 32;
+constexpr int R = 4;             // pixels per thread: a 4x1 strip of one row
+constexpr int NT = P_PIX / R;    // threads per block, one tile per block
+constexpr int NWARPS = NT / 32;
 constexpr int MAX_F = 8;
-constexpr int CHUNK = 32;  // slots per block-reduction round in K3
 constexpr float ALPHA_CLAMP = 0.99f;
 constexpr float ALPHA_SKIP = 1.0f / 255.0f;
+
+// floats per staged row: n attributes padded to a multiple of 4
+__host__ __device__ constexpr int row_stride(int n) { return (n + 3) & ~3; }
 
 struct Alpha {
   float alpha;  // masked, clamped opacity contribution
@@ -63,165 +94,291 @@ struct Alpha {
   bool dmask;   // d alpha / d raw == 1 (live and unclamped)
 };
 
-__device__ __forceinline__ Alpha eval_alpha(const float* r, float dx, float dy) {
-  const float power = -0.5f * (r[2] * dx * dx + r[4] * dy * dy) - r[3] * dx * dy;
-  const float raw = r[5] * expf(fminf(power, 0.0f));
+__device__ __forceinline__ Alpha eval_alpha(float power, float op) {
+  const float raw = op * expf(fminf(power, 0.0f));
   const float clamped = fminf(ALPHA_CLAMP, raw);
   const bool live = (power <= 0.0f) && (clamped >= ALPHA_SKIP);
   return {live ? clamped : 0.0f, raw, live && raw < ALPHA_CLAMP};
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// power of a staged row r = [u, v, -a/2, b, -c/2, ...] at offsets (dx, dy);
+// hcdd = (-c/2) dy dy is shared by the strip
+__device__ __forceinline__ float eval_power(const float* r, float dx, float dy, float hcdd) {
+  return (r[2] * dx * dx + hcdd) - r[3] * dx * dy;
+}
+
+// Stage the tile's first `count` rows: the first N of each row's CA floats
+// into rows of RS floats, a and c times -0.5 (exact).
+template <int RS, int N>
+__device__ __forceinline__ void stage_rows(float* s, const float* src, int count, int CA) {
+  for (int k = threadIdx.x; k < count; k += NT) {
+    const float* g = src + (size_t)k * CA;
+    float* d = s + k * RS;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+    for (int c = 0; c < N; ++c) d[c] = (c == 2 || c == 4) ? -0.5f * g[c] : g[c];
+  }
 }
 
-// Copy the tile's first `count` rows (count * CA floats) into shared memory.
-__device__ __forceinline__ void stage_rows(float* s, const float* src, int n) {
-  for (int i = threadIdx.x; i < n; i += P_PIX) s[i] = src[i];
+template <int RS>
+__device__ __forceinline__ void load_row(float (&r)[RS], const float* s) {
+  const float4* s4 = reinterpret_cast<const float4*>(s);
+#pragma unroll
+  for (int q = 0; q < RS / 4; ++q) {
+    const float4 x = s4[q];
+    r[4 * q] = x.x;
+    r[4 * q + 1] = x.y;
+    r[4 * q + 2] = x.z;
+    r[4 * q + 3] = x.w;
+  }
 }
 
-template <bool WITH_COV>
-__global__ void __launch_bounds__(P_PIX)
+template <int F, bool WITH_COV>
+__global__ void __launch_bounds__(NT)
 composite_fwd_kernel(const int* __restrict__ counts, const float* __restrict__ attrs,
                      const float* __restrict__ bg, float* __restrict__ out,
-                     float* __restrict__ cov, int K, int CA, int F, int n_tx) {
-  extern __shared__ float s_attr[];
+                     float* __restrict__ cov, int K, int n_tx) {
+  constexpr int CA = 6 + F + (WITH_COV ? 1 : 0);
+  constexpr int RS = row_stride(CA);
+  extern __shared__ float4 smem4[];
+  float* s_rows = reinterpret_cast<float*>(smem4);
   const int t = blockIdx.x;
-  const int p = threadIdx.x;
   const int count = max(0, min(counts[t], K));
-  stage_rows(s_attr, attrs + (size_t)t * K * CA, count * CA);
+  stage_rows<RS, CA>(s_rows, attrs + (size_t)t * K * CA, count, CA);
   __syncthreads();
 
-  const float px = (float)((t % n_tx) * TILE + (p & (TILE - 1)));
-  const float py = (float)((t / n_tx) * TILE + (p >> 4));
-  float acc[MAX_F];
+  const int p0 = threadIdx.x * R;  // first pixel of this thread's strip
+  const float px0 = (float)((t % n_tx) * TILE + (p0 & (TILE - 1)));
+  const float py = (float)((t / n_tx) * TILE + (p0 >> 4));
+  float acc[R][F], trans[R], cv[R];
 #pragma unroll
-  for (int f = 0; f < MAX_F; ++f) acc[f] = 0.0f;
-  float trans = 1.0f;
-  float cv = 0.0f;
-  for (int k = 0; k < count; ++k) {
-    const float* r = s_attr + k * CA;
-    const float alpha = eval_alpha(r, px - r[0], py - r[1]).alpha;
-    const float w = alpha * trans;
+  for (int j = 0; j < R; ++j) {
+    trans[j] = 1.0f;
+    cv[j] = 0.0f;
 #pragma unroll
-    for (int f = 0; f < MAX_F; ++f)
-      if (f < F) acc[f] += w * r[6 + f];
-    trans *= 1.0f - alpha;
-    if (WITH_COV) cv = fmaxf(cv, alpha * r[6 + F]);
+    for (int f = 0; f < F; ++f) acc[j][f] = 0.0f;
   }
-  float* o = out + ((size_t)t * P_PIX + p) * F;
+#pragma unroll 2
+  for (int k = 0; k < count; ++k) {
+    float r[RS];
+    load_row<RS>(r, s_rows + k * RS);
+    const float dy = py - r[1];
+    const float hcdd = r[4] * dy * dy;
 #pragma unroll
-  for (int f = 0; f < MAX_F; ++f)
-    if (f < F) o[f] = acc[f] + trans * bg[f];
-  if (WITH_COV) cov[(size_t)t * P_PIX + p] = cv;
+    for (int j = 0; j < R; ++j) {
+      const float dx = (px0 + (float)j) - r[0];
+      const float alpha = eval_alpha(eval_power(r, dx, dy, hcdd), r[5]).alpha;
+      const float w = alpha * trans[j];
+#pragma unroll
+      for (int f = 0; f < F; ++f) acc[j][f] += w * r[6 + f];
+      trans[j] *= 1.0f - alpha;
+      if constexpr (WITH_COV) cv[j] = fmaxf(cv[j], alpha * r[6 + F]);
+    }
+  }
+
+  float bgv[F];
+#pragma unroll
+  for (int f = 0; f < F; ++f) bgv[f] = bg[f];
+  // R * F contiguous floats from pixel p0 on: F float4s, 16-byte aligned
+  float4* o4 = reinterpret_cast<float4*>(out + ((size_t)t * P_PIX + p0) * F);
+#pragma unroll
+  for (int q = 0; q < F; ++q) {
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = (4 * q + e) / F, f = (4 * q + e) % F;
+      v[e] = acc[j][f] + trans[j] * bgv[f];
+    }
+    o4[q] = make_float4(v[0], v[1], v[2], v[3]);
+  }
+  if constexpr (WITH_COV)
+    *reinterpret_cast<float4*>(cov + (size_t)t * P_PIX + p0) =
+        make_float4(cv[0], cv[1], cv[2], cv[3]);
 }
 
-__global__ void __launch_bounds__(P_PIX)
+// One butterfly step: a lane keeps the half of its H-value groups that its
+// lane bit H selects and adds the partner's copy of that half.
+template <int H>
+__device__ __forceinline__ void butterfly_step(float (&v)[32], int lane) {
+  const bool upper = lane & H;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = upper ? v[i] : v[i + H];
+    const float keep = upper ? v[i + H] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, H);
+  }
+}
+
+// Reduce-scatter 32 values across the warp: afterwards v[0] of lane l is
+// the sum over the 32 lanes of value l; 16 + 8 + 4 + 2 + 1 = 31 shuffles.
+// The steps are spelled out so that every index is a constant and v stays
+// in registers.
+__device__ __forceinline__ void butterfly_reduce_scatter(float (&v)[32], int lane) {
+  butterfly_step<16>(v, lane);
+  butterfly_step<8>(v, lane);
+  butterfly_step<4>(v, lane);
+  butterfly_step<2>(v, lane);
+  butterfly_step<1>(v, lane);
+}
+
+template <int F>
+__global__ void __launch_bounds__(NT)
 composite_bwd_kernel(const int* __restrict__ counts, const float* __restrict__ attrs,
                      const float* __restrict__ bg, const float* __restrict__ g,
-                     float* __restrict__ dattrs, int K, int CA, int F, int n_tx) {
-  extern __shared__ float smem[];
-  float* s_attr = smem;           // K * CA
-  float* s_red = smem + K * CA;   // NWARPS * CHUNK * (6 + F)
+                     float* __restrict__ dattrs, int K, int CA, int n_tx) {
+  constexpr int NV = 6 + F;         // sums per slot
+  constexpr int S = 32 / NV;        // slots per butterfly
+  constexpr int RS = row_stride(6 + F);
+  const int KB = (K + S - 1) / S * S;
+  extern __shared__ float4 smem4[];
+  float* s_rows = reinterpret_cast<float*>(smem4);  // K * RS
+  float* s_red = s_rows + K * RS;                     // NWARPS * KB * NV
   const int t = blockIdx.x;
-  const int p = threadIdx.x;
-  const int lane = p & 31;
-  const int warp = p >> 5;
-  const int NV = 6 + F;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int count = max(0, min(counts[t], K));
   float* d_t = dattrs + (size_t)t * K * CA;
-  for (int i = count * CA + p; i < K * CA; i += P_PIX) d_t[i] = 0.0f;
-  if (count == 0) return;  // uniform over the block
-  stage_rows(s_attr, attrs + (size_t)t * K * CA, count * CA);
+  if (count == 0) {  // uniform over the block
+    for (int i = tid; i < K * CA; i += NT) d_t[i] = 0.0f;
+    return;
+  }
+  stage_rows<RS, 6 + F>(s_rows, attrs + (size_t)t * K * CA, count, CA);
   __syncthreads();
 
-  const float px = (float)((t % n_tx) * TILE + (p & (TILE - 1)));
-  const float py = (float)((t / n_tx) * TILE + (p >> 4));
-  float gp[MAX_F];
-  float bgg = 0.0f;
+  const int p0 = tid * R;
+  const float px0 = (float)((t % n_tx) * TILE + (p0 & (TILE - 1)));
+  const float py = (float)((t / n_tx) * TILE + (p0 >> 4));
+  float gp[R][F];
+  const float4* g4 = reinterpret_cast<const float4*>(g + ((size_t)t * P_PIX + p0) * F);
 #pragma unroll
-  for (int f = 0; f < MAX_F; ++f) {
-    gp[f] = f < F ? g[((size_t)t * P_PIX + p) * F + f] : 0.0f;
-    if (f < F) bgg += bg[f] * gp[f];
+  for (int q = 0; q < F; ++q) {
+    const float4 x = g4[q];
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gp[(4 * q + e) / F][(4 * q + e) % F] = xs[e];
+  }
+  float bgg[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    bgg[j] = 0.0f;
+#pragma unroll
+    for (int f = 0; f < F; ++f) bgg[j] += bg[f] * gp[j][f];
   }
 
-  // pass 1: T_final and A = sum_k w_k fg_k
-  float trans = 1.0f;
-  float A = 0.0f;
+  // pass 1: T_final and A = sum_k w_k fg_k per pixel
+  float trans[R], A[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    trans[j] = 1.0f;
+    A[j] = 0.0f;
+  }
   for (int k = 0; k < count; ++k) {
-    const float* r = s_attr + k * CA;
-    const float alpha = eval_alpha(r, px - r[0], py - r[1]).alpha;
-    float fg = 0.0f;
+    float r[RS];
+    load_row<RS>(r, s_rows + k * RS);
+    const float dy = py - r[1];
+    const float hcdd = r[4] * dy * dy;
+    float alpha[R];
+    bool any = false;
 #pragma unroll
-    for (int f = 0; f < MAX_F; ++f)
-      if (f < F) fg += r[6 + f] * gp[f];
-    A += alpha * trans * fg;
-    trans *= 1.0f - alpha;
-  }
-  const float t_final = trans;
-
-  // pass 2: per-slot gradients, reduced over the tile's pixels
-  trans = 1.0f;
-  float prefix = 0.0f;
-  for (int k0 = 0; k0 < count; k0 += CHUNK) {
-    const int kn = min(CHUNK, count - k0);
-    for (int j = 0; j < kn; ++j) {
-      const float* r = s_attr + (k0 + j) * CA;
-      const float dx = px - r[0];
-      const float dy = py - r[1];
-      const Alpha al = eval_alpha(r, dx, dy);
+    for (int j = 0; j < R; ++j) {
+      alpha[j] = eval_alpha(eval_power(r, (px0 + (float)j) - r[0], dy, hcdd), r[5]).alpha;
+      any |= alpha[j] > 0.0f;
+    }
+    if (!__any_sync(0xffffffffu, any)) continue;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
       float fg = 0.0f;
 #pragma unroll
-      for (int f = 0; f < MAX_F; ++f)
-        if (f < F) fg += r[6 + f] * gp[f];
-      const float w = al.alpha * trans;
-      prefix += w * fg;
-      const float suffix = A - prefix;  // sum_{j > k} w_j fg_j
-      const float dalpha = trans * fg - (suffix + t_final * bgg) / (1.0f - al.alpha);
-      const float dpower = al.dmask ? dalpha * al.raw : 0.0f;
-      float v[6 + MAX_F];
-      v[0] = dpower;
-      v[1] = dpower * dx;
-      v[2] = dpower * dy;
-      v[3] = v[1] * dx;
-      v[4] = v[1] * dy;
-      v[5] = v[2] * dy;
+      for (int f = 0; f < F; ++f) fg += r[6 + f] * gp[j][f];
+      A[j] += alpha[j] * trans[j] * fg;
+      trans[j] *= 1.0f - alpha[j];
+    }
+  }
+  float t_final[R], prefix[R];
 #pragma unroll
-      for (int f = 0; f < MAX_F; ++f) v[6 + f] = w * gp[f];
-      trans *= 1.0f - al.alpha;
+  for (int j = 0; j < R; ++j) {
+    t_final[j] = trans[j];
+    trans[j] = 1.0f;
+    prefix[j] = 0.0f;
+  }
+
+  // pass 2: per-slot sums, S slots per butterfly; value s * NV + i of a
+  // batch is sum i of slot k0 + s
+  float* red = s_red + warp * KB * NV;
+  for (int k0 = 0; k0 < count; k0 += S) {
+    float v[32];
 #pragma unroll
-      for (int i = 0; i < 6 + MAX_F; ++i) {
-        if (i < NV) {
-          const float s = warp_sum(v[i]);
-          if (lane == 0) s_red[(warp * CHUNK + j) * NV + i] = s;
+    for (int i = 0; i < 32; ++i) v[i] = 0.0f;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if (k0 + s >= count) continue;  // uniform over the block
+      float r[RS];
+      load_row<RS>(r, s_rows + (k0 + s) * RS);
+      const float dy = py - r[1];
+      const float hcdd = r[4] * dy * dy;
+      Alpha al[R];
+      bool any = false;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        al[j] = eval_alpha(eval_power(r, (px0 + (float)j) - r[0], dy, hcdd), r[5]);
+        any |= al[j].alpha > 0.0f;
+      }
+      if (!__any_sync(0xffffffffu, any)) continue;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        float fg = 0.0f;
+#pragma unroll
+        for (int f = 0; f < F; ++f) fg += r[6 + f] * gp[j][f];
+        const float w = al[j].alpha * trans[j];
+        prefix[j] += w * fg;
+        if (al[j].dmask) {  // else dpower = 0 and the moments add zeros
+          const float dx = (px0 + (float)j) - r[0];
+          const float suffix = A[j] - prefix[j];  // sum_{i > k} w_i fg_i
+          const float dalpha =
+              trans[j] * fg - (suffix + t_final[j] * bgg[j]) / (1.0f - al[j].alpha);
+          const float dpower = dalpha * al[j].raw;
+          const float dpx = dpower * dx;
+          const float dpy = dpower * dy;
+          v[s * NV + 0] += dpower;
+          v[s * NV + 1] += dpx;
+          v[s * NV + 2] += dpy;
+          v[s * NV + 3] += dpx * dx;
+          v[s * NV + 4] += dpx * dy;
+          v[s * NV + 5] += dpy * dy;
         }
-      }
-    }
-    __syncthreads();
-    if (p < kn) {
-      float s[6 + MAX_F];
 #pragma unroll
-      for (int i = 0; i < 6 + MAX_F; ++i) {
-        float acc = 0.0f;
-        if (i < NV)
-          for (int w = 0; w < NWARPS; ++w) acc += s_red[(w * CHUNK + p) * NV + i];
-        s[i] = acc;
+        for (int f = 0; f < F; ++f) v[s * NV + 6 + f] += w * gp[j][f];
+        trans[j] *= 1.0f - al[j].alpha;
       }
-      const float* r = s_attr + (k0 + p) * CA;
-      const float a = r[2], b = r[3], c = r[4], op = r[5];
-      float* d = d_t + (size_t)(k0 + p) * CA;
-      d[0] = a * s[1] + b * s[2];              // du
-      d[1] = c * s[2] + b * s[1];              // dv
-      d[2] = -0.5f * s[3];                     // da
-      d[3] = -s[4];                            // db
-      d[4] = -0.5f * s[5];                     // dc
-      d[5] = op > 0.0f ? s[0] / fmaxf(op, 1e-20f) : 0.0f;  // dop
-      for (int f = 0; f < F; ++f) d[6 + f] = s[6 + f];     // dfeat
-      for (int i = 6 + F; i < CA; ++i) d[i] = 0.0f;        // mov: no gradient
     }
-    __syncthreads();
+    butterfly_reduce_scatter(v, lane);
+    if (lane < S * NV) red[k0 * NV + lane] = v[0];
+  }
+  __syncthreads();
+
+  // combine the warps' sums (fixed order) into the tile's (K, CA) output:
+  // rows >= count and the mov column get zero
+  for (int i = tid; i < K * CA; i += NT) {
+    const int k = i / CA;
+    const int c = i - k * CA;
+    auto sum = [&](int v) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int w = 0; w < NWARPS; ++w) acc += s_red[(w * KB + k) * NV + v];
+      return acc;
+    };
+    const float* r = s_rows + k * RS;
+    float d = 0.0f;
+    if (k < count) {
+      if (c == 0) d = -2.0f * r[2] * sum(1) + r[3] * sum(2);        // du = a s1 + b s2
+      else if (c == 1) d = -2.0f * r[4] * sum(2) + r[3] * sum(1);   // dv = c s2 + b s1
+      else if (c == 2) d = -0.5f * sum(3);                           // da
+      else if (c == 3) d = -sum(4);                                  // db
+      else if (c == 4) d = -0.5f * sum(5);                           // dc
+      else if (c == 5) d = r[5] > 0.0f ? sum(0) / fmaxf(r[5], 1e-20f) : 0.0f;  // dop
+      else if (c < 6 + F) d = sum(c);                                // dfeat
+    }
+    d_t[i] = d;
   }
 }
 
@@ -229,41 +386,125 @@ bool bad_shape(int T, int K, int CA, int F, int extra) {
   return T < 0 || K < 1 || F < 1 || F > MAX_F || CA != 6 + F + extra;
 }
 
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int F, bool WITH_COV>
+size_t fwd_smem(int K) {
+  return (size_t)K * row_stride(6 + F + (WITH_COV ? 1 : 0)) * sizeof(float);
+}
+
+template <int F>
+size_t bwd_smem(int K) {
+  constexpr int NV = 6 + F, S = 32 / NV;
+  const size_t KB = (size_t)(K + S - 1) / S * S;
+  return ((size_t)K * row_stride(6 + F) + NWARPS * KB * NV) * sizeof(float);
+}
+
+template <int F, bool WITH_COV>
+int launch_fwd(const int* counts, const float* attrs, const float* bg, float* out, float* cov,
+               int T, int K, int n_tx, cudaStream_t stream) {
+  const size_t smem = fwd_smem<F, WITH_COV>(K);
+  const cudaError_t e = allow_smem(composite_fwd_kernel<F, WITH_COV>, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (T > 0)
+    composite_fwd_kernel<F, WITH_COV><<<T, NT, smem, stream>>>(counts, attrs, bg, out, cov,
+                                                               K, n_tx);
+  return (int)cudaGetLastError();
+}
+
+template <int F>
+int launch_bwd(const int* counts, const float* attrs, const float* bg, const float* g,
+               float* dattrs, int T, int K, int CA, int n_tx, cudaStream_t stream) {
+  const size_t smem = bwd_smem<F>(K);
+  const cudaError_t e = allow_smem(composite_bwd_kernel<F>, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (T > 0)
+    composite_bwd_kernel<F><<<T, NT, smem, stream>>>(counts, attrs, bg, g, dattrs, K, CA,
+                                                     n_tx);
+  return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM, registers, local bytes, dynamic shared bytes and
+// threads per block of one kernel (5 ints).
+template <typename Kernel>
+int occupancy(Kernel kernel, size_t smem, int* o) {
+  cudaError_t e = allow_smem(kernel, smem);
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, NT, smem);
+  if (e != cudaSuccess) return (int)e;
+  o[0] = blocks;
+  o[1] = attr.numRegs;
+  o[2] = (int)attr.localSizeBytes;
+  o[3] = (int)smem;
+  o[4] = NT;
+  return 0;
+}
+
+template <int F>
+int occupancy_all(int K, int* info) {
+  int rc = occupancy(composite_fwd_kernel<F, false>, fwd_smem<F, false>(K), info);
+  if (rc == 0) rc = occupancy(composite_fwd_kernel<F, true>, fwd_smem<F, true>(K), info + 5);
+  if (rc == 0) rc = occupancy(composite_bwd_kernel<F>, bwd_smem<F>(K), info + 10);
+  return rc;
+}
+
 }  // namespace
+
+// One instantiation per feature count F = 1..8.
+#define GFLOW_SWITCH_F(F, CALL)                 \
+  switch (F) {                                  \
+    case 1: return CALL(1);                     \
+    case 2: return CALL(2);                     \
+    case 3: return CALL(3);                     \
+    case 4: return CALL(4);                     \
+    case 5: return CALL(5);                     \
+    case 6: return CALL(6);                     \
+    case 7: return CALL(7);                     \
+    case 8: return CALL(8);                     \
+    default: return (int)cudaErrorInvalidValue; \
+  }
 
 extern "C" int gflow_composite_fwd(const int* counts, const float* attrs, const float* bg,
                                    float* out, int T, int K, int CA, int F, int n_tx,
                                    cudaStream_t stream) {
   if (bad_shape(T, K, CA, F, 0)) return (int)cudaErrorInvalidValue;
-  if (T > 0)
-    composite_fwd_kernel<false><<<T, P_PIX, (size_t)K * CA * sizeof(float), stream>>>(
-        counts, attrs, bg, out, nullptr, K, CA, F, n_tx);
-  return (int)cudaGetLastError();
+#define GFLOW_FWD(NF) launch_fwd<NF, false>(counts, attrs, bg, out, nullptr, T, K, n_tx, stream)
+  GFLOW_SWITCH_F(F, GFLOW_FWD)
+#undef GFLOW_FWD
 }
 
 extern "C" int gflow_composite_fwd_cov(const int* counts, const float* attrs, const float* bg,
                                        float* out, float* cov, int T, int K, int CA, int F,
                                        int n_tx, cudaStream_t stream) {
   if (bad_shape(T, K, CA, F, 1)) return (int)cudaErrorInvalidValue;
-  if (T > 0)
-    composite_fwd_kernel<true><<<T, P_PIX, (size_t)K * CA * sizeof(float), stream>>>(
-        counts, attrs, bg, out, cov, K, CA, F, n_tx);
-  return (int)cudaGetLastError();
+#define GFLOW_FWD_COV(NF) launch_fwd<NF, true>(counts, attrs, bg, out, cov, T, K, n_tx, stream)
+  GFLOW_SWITCH_F(F, GFLOW_FWD_COV)
+#undef GFLOW_FWD_COV
 }
 
 extern "C" int gflow_composite_bwd(const int* counts, const float* attrs, const float* bg,
                                    const float* g, float* dattrs, int T, int K, int CA, int F,
                                    int n_tx, cudaStream_t stream) {
-  if (T < 0 || K < 1 || F < 1 || F > MAX_F || (CA != 6 + F && CA != 7 + F))
+  if (bad_shape(T, K, CA, F, 0) && bad_shape(T, K, CA, F, 1))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)K * CA + (size_t)NWARPS * CHUNK * (6 + F)) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        composite_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  if (T > 0)
-    composite_bwd_kernel<<<T, P_PIX, smem, stream>>>(counts, attrs, bg, g, dattrs, K, CA, F,
-                                                     n_tx);
-  return (int)cudaGetLastError();
+#define GFLOW_BWD(NF) launch_bwd<NF>(counts, attrs, bg, g, dattrs, T, K, CA, n_tx, stream)
+  GFLOW_SWITCH_F(F, GFLOW_BWD)
+#undef GFLOW_BWD
+}
+
+// Resident blocks per SM, registers, local (spill) bytes, dynamic shared
+// bytes and threads per block of K1, K2 and K3 (5 ints each, in that
+// order) at capacity K and F feature channels.
+extern "C" int gflow_composite_occupancy(int K, int F, int* info) {
+  if (K < 1) return (int)cudaErrorInvalidValue;
+#define GFLOW_OCC(NF) occupancy_all<NF>(K, info)
+  GFLOW_SWITCH_F(F, GFLOW_OCC)
+#undef GFLOW_OCC
 }

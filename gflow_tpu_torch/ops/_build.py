@@ -10,8 +10,10 @@ source, all together.
 Every C entry point takes its tensors as raw device pointers plus the
 current CUDA stream, launches, and returns ``cudaGetLastError()``;
 ``launch`` raises when that is nonzero and counts the launch in
-``LAUNCHES``. No ``--use_fast_math``: ``expf`` must stay accurate, because
-alpha is compared against the 1/255 threshold.
+``LAUNCHES``. ``-Xptxas -v`` makes each build report its kernels'
+registers, shared memory and spills (``BUILD_LOGS``). No
+``--use_fast_math``: ``expf`` must stay accurate, because alpha is
+compared against the 1/255 threshold.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel name -> (source file, C symbol, argument types before the stream)
@@ -45,6 +47,8 @@ KERNELS = {
 
 # launches per kernel name since the last reset (``LAUNCHES.clear()``)
 LAUNCHES: collections.Counter = collections.Counter()
+# compiler output per source built by this process
+BUILD_LOGS: dict[str, str] = {}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict = {}
@@ -82,6 +86,7 @@ def build_all(sources=None) -> dict[str, Path]:
     errors = []
     for s, (proc, tmp) in procs.items():
         log, _ = proc.communicate()
+        BUILD_LOGS[s] = log
         if proc.returncode != 0:
             errors.append(f"nvcc failed on {s} (exit {proc.returncode}):\n{log}")
         else:
@@ -91,12 +96,17 @@ def build_all(sources=None) -> dict[str, Path]:
     return paths
 
 
+def library(source: str) -> ctypes.CDLL:
+    """The loaded library of csrc/`source`, built on first use."""
+    if source not in _libs:
+        _libs[source] = ctypes.CDLL(str(build_all([source])[source]))
+    return _libs[source]
+
+
 def _function(name: str):
     if name not in _fns:
         source, symbol, argtypes = KERNELS[name]
-        if source not in _libs:
-            _libs[source] = ctypes.CDLL(str(build_all([source])[source]))
-        fn = getattr(_libs[source], symbol)
+        fn = getattr(library(source), symbol)
         fn.argtypes = (*argtypes, _P)
         fn.restype = _I
         _fns[name] = fn

@@ -63,6 +63,8 @@ def composite_bwd(g_attrs, counts, bg, g, n_tx: int, with_cov: bool = False):
     if g.dtype != torch.float32 or g.shape != (T, P_PIX, F) or g.device != g_attrs.device:
         raise ValueError(f"g: need a float32 ({T}, {P_PIX}, {F}) tensor")
     g = g.contiguous()
+    if g.data_ptr() % 16:  # the kernel reads each thread's 4F floats as float4s
+        g = g.clone()
     dattrs = torch.empty_like(g_attrs)
     _build.launch("composite_bwd", counts, g_attrs, bg, g, dattrs, T, K, CA, F, n_tx)
     return dattrs

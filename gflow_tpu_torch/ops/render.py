@@ -98,7 +98,8 @@ def render(xyz, scale, rotate, opacity, rgb, intr, extr, bg, W: int, H: int,
         out["uv"] = uv
     if "depth" in outputs:
         out["depth"] = depth
-    need_main = any(k in outputs for k in ("rgb", "depth_map", "depth_map_color", "acc"))
+    # as the reference: acc rides along with rgb/depth outputs, never alone
+    need_main = any(k in outputs for k in ("rgb", "depth_map", "depth_map_color"))
     need_center = "center" in outputs
     if not (need_main or need_center):
         return out

@@ -14,6 +14,8 @@ from typing import NamedTuple
 
 import torch
 
+from .. import resolve_device
+
 
 class Params(NamedTuple):
     """All differentiable leaves. Attribute tensors are raw
@@ -49,7 +51,10 @@ class FrameState(NamedTuple):
 
 
 def init_frame_state(capacity: int, device=None) -> FrameState:
+    """Fresh per-frame state on `device` (``cuda`` unless the caller passes
+    another)."""
     C = capacity
+    device = resolve_device(device)
     return FrameState(
         n_alive=torch.zeros((), dtype=torch.int32, device=device),
         still_mask=torch.ones(C, dtype=torch.bool, device=device),
@@ -88,8 +93,10 @@ def init_opt_state(params: Params) -> OptState:
 def adam_update(params: Params, grads: Params, opt_state: OptState, lr_attr,
                 lr_pose, lr_depth, b1=0.9, b2=0.999, eps=1e-8):
     step = opt_state.step + 1
-    bc1 = 1.0 - b1 ** step
-    bc2 = 1.0 - b2 ** step
+    # bias corrections in float32, as the reference computes them
+    t = torch.full((), step, dtype=torch.float32, device=params.xyz.device)
+    bc1 = 1.0 - b1 ** t
+    bc2 = 1.0 - b2 ** t
     lrs = (lr_attr, lr_pose, lr_depth)
     new_m = Params(*(b1 * m + (1 - b1) * g for m, g in zip(opt_state.m, grads)))
     new_v = Params(*(b2 * v + (1 - b2) * g * g for v, g in zip(opt_state.v, grads)))

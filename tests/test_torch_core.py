@@ -78,7 +78,7 @@ def test_pix2world_world2pix_match_jax():
 
 
 def test_default_intrinsics_and_pose_gradients():
-    np.testing.assert_allclose(tcam.default_intrinsics(32, 24).numpy(),
+    np.testing.assert_allclose(tcam.default_intrinsics(32, 24, device="cpu").numpy(),
                                np.asarray(jcam.default_intrinsics(32, 24)))
     xyz = np.asarray([[0.0, 0.0, 2.0], [0.5, -0.3, 3.0]], np.float32)
     intr = jcam.default_intrinsics(32, 32)

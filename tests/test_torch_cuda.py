@@ -5,7 +5,9 @@ and skip without one; on the GPU machine run
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
 Tolerances: images atol 5e-4 / rtol 1e-3 (tests/test_pallas.py:42-44);
-gradients normalized by max |ref| per column, atol 5e-4; K4 exact."""
+coverage support exact where the plain coverage is clear of 0 by 1e-3;
+gradients normalized by max |ref| per column, atol 5e-4; K3 bitwise
+repeatable (no float atomics); K4 exact."""
 import numpy as np
 import pytest
 import torch
@@ -23,7 +25,7 @@ def dev():
     return torch.device("cuda")
 
 
-def packed(dev, T=12, K=40, F=4, with_cov=False, n_tx=4, seed=0):
+def packed(dev, T=12, K=40, F=4, with_cov=False, n_tx=4, seed=0, first_counts=(0,)):
     g = torch.Generator().manual_seed(seed)
     u = lambda *s: torch.rand(*s, generator=g)
     t = torch.arange(T)
@@ -36,7 +38,7 @@ def packed(dev, T=12, K=40, F=4, with_cov=False, n_tx=4, seed=0):
         cols.append((u(T, K, 1) < 0.5).float())
     attrs = torch.cat(cols, -1)
     counts = torch.randint(0, K + 1, (T,), generator=g).to(torch.int32)
-    counts[0], counts[1] = 0, K
+    counts[:len(first_counts) + 1] = torch.tensor([*first_counts, K], dtype=torch.int32)
     bg = u(F)
     return attrs.to(dev), counts.to(dev), bg.to(dev)
 
@@ -131,3 +133,75 @@ def test_wrappers_refuse_bad_input(dev):
         cuda_raster.composite_fwd(attrs, counts.long(), bg, 4)
     with pytest.raises(ValueError):
         binning.pack_tile_lists(counts.long(), counts, counts, 8)
+
+
+def check_fwd_bwd(attrs, counts, bg, n_tx, with_cov, seed=0):
+    """K1/K2 against the plain forward, K3 against autograd through it
+    (twice, bitwise equal)."""
+    got = cuda_raster.composite_fwd(attrs, counts, bg, n_tx, with_cov)
+    want = composite.composite_packed(attrs, counts, bg, n_tx, with_cov)
+    got, want = (got, want) if with_cov else ((got,), (want,))
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, atol=5e-4, rtol=1e-3)
+    if with_cov:
+        clear = want[1].abs() > 1e-3
+        assert torch.equal((got[1] > 0)[clear], (want[1] > 0)[clear])
+    gen = torch.Generator(device=attrs.device).manual_seed(seed)
+    g = torch.randn(want[0].shape, generator=gen, device=attrs.device)
+    dk = cuda_raster.composite_bwd(attrs, counts, bg, g, n_tx, with_cov)
+    a = attrs.clone().requires_grad_()
+    out = composite.composite_packed(a, counts, bg, n_tx, with_cov)
+    ref = torch.autograd.grad(out[0] if with_cov else out, a, g)[0]
+    scale = ref.abs().amax(dim=(0, 1)).clamp_min(1e-12)
+    err = float(((dk - ref) / scale).abs().max())
+    assert err <= 5e-4, err
+    if with_cov:
+        assert not dk[..., -1].any()
+    assert torch.equal(dk, cuda_raster.composite_bwd(attrs, counts, bg, g, n_tx, with_cov))
+    return want
+
+
+@pytest.mark.parametrize("with_cov", [False, True])
+@pytest.mark.parametrize("F", range(1, 9))
+@pytest.mark.parametrize("K", [40, 96, 192, 256])
+def test_kernels_at_edge_counts(dev, K, F, with_cov):
+    """Tiles with 0, 1, R - 1 = 3 and one more than the K3 slot batch
+    (32 // (6 + F)) live rows, and a full tile, beside random counts; CA =
+    6 + F (K1) and 7 + F (K2, and K3 with the mov column)."""
+    firsts = (0, 1, 3, 32 // (6 + F) + 1)
+    attrs, counts, bg = packed(dev, K=K, F=F, with_cov=with_cov, seed=K + F,
+                               first_counts=firsts)
+    assert counts[:5].tolist() == [*firsts, K]
+    check_fwd_bwd(attrs, counts, bg, 4, with_cov, seed=F)
+
+
+@pytest.mark.parametrize("with_cov", [False, True])
+def test_saturated_stack_underflows_transmittance(dev, with_cov):
+    """48 wide splats at opacity 0.99 over one tile's centre: T underflows
+    to exactly 0 there after ~23 of them; the forward still matches and
+    K3's suffix (A - prefix) stays within the normalized tolerance."""
+    K, F, T = 64, 4, 2
+    rng = np.random.default_rng(7)
+    uv = 8.0 + rng.uniform(-0.5, 0.5, (T, K, 2))
+    conic = np.broadcast_to([0.08, 0.0, 0.08], (T, K, 3))
+    op = np.full((T, K, 1), 0.99)
+    cols = [uv, conic, op, rng.uniform(0, 1, (T, K, F))]
+    if with_cov:
+        cols.append((rng.uniform(size=(T, K, 1)) < 0.5).astype(np.float64))
+    attrs = torch.tensor(np.concatenate(cols, -1), dtype=torch.float32, device=dev)
+    counts = torch.tensor([48, K], dtype=torch.int32, device=dev)
+    bg = torch.full((F,), 0.5, device=dev)
+    px, py = composite.tile_pixels(T, 2, dev)
+    alpha = composite.tile_alpha(attrs[..., 0:2], attrs[..., 2:5], attrs[..., 5:6], px, py)
+    t_final = torch.prod(1.0 - alpha, dim=1)
+    assert int((t_final == 0).sum()) > 0  # the case under test
+    check_fwd_bwd(attrs.contiguous(), counts, bg, 2, with_cov)
+
+
+def test_backward_takes_a_misaligned_gradient(dev):
+    attrs, counts, bg = packed(dev)
+    g = torch.randn(12 * 256 * 4 + 1, device=dev)[1:].view(12, 256, 4)
+    assert g.data_ptr() % 16
+    torch.testing.assert_close(cuda_raster.composite_bwd(attrs, counts, bg, g, 4),
+                               cuda_raster.composite_bwd(attrs, counts, bg, g.clone(), 4),
+                               rtol=0, atol=0)

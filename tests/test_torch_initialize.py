@@ -82,7 +82,7 @@ def test_convert_roundtrip_both_packages():
     assert ts.still_mask.dtype == torch.bool
     for k, v in convert.frame_state_to_numpy(ts).items():
         np.testing.assert_array_equal(v, np.asarray(getattr(s, k)))
-    ref = tstate.init_frame_state(C)
+    ref = tstate.init_frame_state(C, device="cpu")
     for k in tstate.FrameState._fields:
         assert getattr(ref, k).shape == getattr(ts, k).shape
     tg = {"image": np.zeros((4, 5, 3), np.float32), "depth": np.ones((4, 5, 1), np.float32),
@@ -92,3 +92,12 @@ def test_convert_roundtrip_both_packages():
     tg["depth"][:] = 7.0  # the carried-over tensors do not alias the input
     assert float(tt.depth.max()) == 1.0
     assert convert.targets_to_numpy(tt)["occ_mask"].all()
+
+
+def test_init_frame_state_matches_jax():
+    C = 48
+    ts = tstate.init_frame_state(C, device="cpu")
+    for k, v in jstate.init_frame_state(C)._asdict().items():
+        got = getattr(ts, k).numpy()
+        assert got.dtype == np.asarray(v).dtype, k
+        np.testing.assert_array_equal(got, np.asarray(v), err_msg=k)

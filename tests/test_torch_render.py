@@ -94,6 +94,20 @@ def test_uint8_outputs_and_render2img():
     np.testing.assert_array_equal(render2img(img), (img.clamp(0, 1) * 255).to(torch.uint8).numpy())
 
 
+@pytest.mark.parametrize("outputs", [("acc",), ("uv", "acc"), ("rgb", "acc"),
+                                     ("depth_map", "acc")])
+def test_acc_only_beside_a_main_output_as_in_jax(outputs):
+    """acc rides along with the rgb/depth outputs: asked for alone (or
+    beside uv) it is not rendered, as in the reference."""
+    W, H = 64, 48
+    arrays = scene(n=150, seed=6)
+    oj, ot = both(arrays, 0.0, W, H, outputs=outputs)
+    assert set(ot) == set(oj)
+    assert ("acc" in ot) == any(k in outputs for k in ("rgb", "depth_map"))
+    for k in ot:
+        np.testing.assert_allclose(ot[k], oj[k], atol=1e-4, rtol=1e-5, err_msg=k)
+
+
 def test_colormap_matches_jax():
     rng = np.random.default_rng(5)
     d = rng.uniform(1.0, 5.0, (20, 30, 1)).astype(np.float32)
@@ -121,7 +135,9 @@ def test_for_scene_matches_jax(W, H, n, textured):
 def _call_entry_point(name):
     from gflow_tpu_torch import convert
     from gflow_tpu_torch.opt import train
+    from gflow_tpu_torch.core.camera import default_intrinsics
     from gflow_tpu_torch.opt.initialize import init_params_from_image
+    from gflow_tpu_torch.opt.state import init_frame_state
 
     arrays = scene(n=10)
     if name == "render":
@@ -135,13 +151,17 @@ def _call_entry_point(name):
         convert.params_from_numpy({**dict(zip(keys, arrays[:5])),
                                    "pose": np.zeros(7, np.float32),
                                    "depth_ab": np.zeros(2, np.float32)})
+    elif name == "init_frame_state":
+        init_frame_state(16)
+    elif name == "default_intrinsics":
+        default_intrinsics(64, 48)
     else:  # the device is resolved before any argument is read
         train.train_stage(None, None, None, arrays[5], torch.Generator(),
                           train.StageConfig(W=64, H=48, iterations=1), train.StageDynamics())
 
 
 @pytest.mark.parametrize("entry", ["render", "init_params_from_image", "params_from_numpy",
-                                   "train_stage"])
+                                   "train_stage", "init_frame_state", "default_intrinsics"])
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, entry):
     """Entry points run on cuda by default and raise without a GPU rather
     than falling back to the CPU."""

@@ -9,9 +9,11 @@
 3. holds each kernel against its plain PyTorch version on the card at the
    canonical shapes (T = 54 x 30 = 1620 tiles of the 854x480 frame,
    K in {96, 192}, F = 4), and times kernel, plain version and bound with
-   CUDA events: on synthetic packed inputs, and K1-K3 also on the main
-   path's own packed input and upstream gradient (the first iteration of
-   the canonical frame's camera-only and full stage);
+   CUDA events: on synthetic packed inputs and sorted streams, and on the
+   main path's own packed input, upstream gradient and sorted stream (the
+   first iteration of the canonical frame's camera-only and full stage);
+   K4 (the binning tail, one launch) also on one two-class binning of
+   the full stage's projection, and beside torch.searchsorted;
 4. drives the port's main path — the per-frame fit of bench.py's scene
    (854x480, 50,000 points, capacity 51,200, seed 0, M=8 / K=96) — with
    the launch counters reset just before and read just after: a short
@@ -23,7 +25,8 @@
    the plain PyTorch versions (also on the card);
 5. times one frame at the canonical budget (150 camera + 300 full
    iterations, occ densify at 0 and error densify every 100 x2) after one
-   warm-up frame;
+   warm-up frame; profiles a 20-iteration full stage and, alone, the
+   binning layer (bin_gaussians) on each stage's first-iteration input;
 6. prints the kernels JSON line, then as its last line
    {"ok": true, "device": {...}}.
 
@@ -202,12 +205,110 @@ def bwd_row(attrs, counts, bg, g, n_tx, with_cov):
                 bound_ms=b_ms, bound_by=b_by, live_slots=live)
 
 
+def synthetic_stream(gen, T):
+    """A sorted stream of the main path's size: L = capacity x 8 entries
+    (M = 8, single-class ids: group 8), tiles uniform in [0, T] (T = the
+    sentinel), random depth bits."""
+    L, nbits = CAPACITY * 8, 31 - (T + 1).bit_length()
+    rand = lambda hi: torch.randint(0, hi, (L,), generator=gen, device=gen.device,
+                                    dtype=torch.int32)
+    key_s, order = torch.sort((rand(T + 1) << nbits) | rand(2 ** nbits))
+    return key_s, order, 8, nbits, T
+
+
+def search_sectors(tile_s, T):
+    """32-byte sectors of the sorted tiles (int32, 8 per sector) that a
+    binary search for the T + 1 segment starts reads (lower bound, as
+    searchsorted side="left"), each counted once: the key bytes the starts
+    need, not a full read of the keys."""
+    L, dev = tile_s.shape[0], tile_s.device
+    probe = torch.arange(T + 1, device=dev)
+    lo = torch.zeros(T + 1, dtype=torch.long, device=dev)
+    hi = torch.full((T + 1,), L, dtype=torch.long, device=dev)
+    read = []
+    while bool((lo < hi).any()):
+        live = lo < hi
+        mid = (lo + hi) // 2
+        read.append(mid[live])
+        less = tile_s[mid.clamp_max(L - 1)] < probe
+        lo = torch.where(live & less, mid + 1, lo)
+        hi = torch.where(live & ~less, mid, hi)
+    return int(torch.unique(torch.cat(read) // 8).numel()) if read else 0
+
+
+def tail_bytes(stream, K, live):
+    """Bytes the binning tail must move: the key sectors a search for the
+    segment starts reads, each live slot's order entry and id
+    (binning.slot_bytes), the lists and counts written once."""
+    from gflow_tpu_torch.ops import binning
+
+    key_s, _, idx_flat, nbits, T = stream
+    return (32 * search_sectors(key_s >> nbits, T) + binning.slot_bytes(idx_flat) * live
+            + 4 * T * K + 4 * T)
+
+
+def tail_row(stream, K, where):
+    """K4 on one sorted stream: bin_tail against bin_tail_plain
+    (torch.equal), timed beside its plain version, its bound and
+    torch.searchsorted, which computes the segment starts alone (no one
+    PyTorch call computes the whole tail, so library_ms is None)."""
+    from gflow_tpu_torch.ops import binning
+
+    key_s, order, idx_flat, nbits, T = stream
+    got = binning.bin_tail(key_s, order, idx_flat, nbits, T, K)
+    want = binning.bin_tail_plain(key_s, order, idx_flat, nbits, T, K)
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_, w_), f"bin_tail differs from its plain version ({where}, K={K})"
+    live = float(got[1].clamp_max(K).sum())
+    tile_s = key_s >> nbits
+    probe = torch.arange(T + 1, dtype=torch.int32, device=key_s.device)
+    b_ms, b_by = bound(0.0, tail_bytes(stream, K, live))
+    return dict(
+        max_abs_err=0.0,
+        ms=kernel_ms(lambda: binning.bin_tail(key_s, order, idx_flat, nbits, T, K)),
+        plain_ms=cuda_ms(lambda: binning.bin_tail_plain(key_s, order, idx_flat, nbits, T, K)),
+        library_ms=None,
+        searchsorted_ms=kernel_ms(lambda: torch.searchsorted(tile_s, probe, out_int32=True)),
+        bound_ms=b_ms, bound_by=b_by, live_slots=live, entries=key_s.shape[0])
+
+
+def two_class_stream(bin_call):
+    """One two-class binning on the card (M = 48 with the 4x2 small grid, K
+    = 128, as RenderConfig.for_scene picks for wider grids) of a captured
+    bin_gaussians input whose radii are scaled by 4, so that a share of the
+    splats outgrows the small grid: through the tail kernel and through
+    the plain tail, equal; returns its sorted stream."""
+    from gflow_tpu_torch.ops import binning
+
+    (uv, depth, radius, *rest), kw = bin_call
+    args = (uv, depth, 4.0 * radius, *rest)
+    kw = dict(kw, max_per_tile=128, max_tiles_per_gaussian=48, small_tiles_per_gaussian=8)
+    with capture_binning() as cap:
+        got = binning.bin_gaussians(*args, **kw)
+    with plain_versions():
+        want = binning.bin_gaussians(*args, **kw)
+    assert torch.equal(got.tile_lists, want.tile_lists), "two-class tile lists differ"
+    assert torch.equal(got.tile_counts, want.tile_counts), "two-class tile counts differ"
+    (stream,) = cap["streams"]
+    key_s, order, _, nbits, T = stream
+    n_small = uv.shape[0] * 8  # the 4x2 grid's entries come first
+    large = int(((order >= n_small) & ((key_s >> nbits) < T)).sum())
+    assert large > 0, "the large class emitted nothing"
+    log(f"# two-class binning (M=48, small 8, K=128, radii x4) of the full stage's first "
+        f"projection: kernels == plain; {key_s.shape[0]} entries, {large} live entries of "
+        f"the large class, {int(got.large_clamped)} large splats clamped")
+    return stream
+
+
 def log_row(name, K, where, r):
     norm = (f" max err normalized by max |ref| per column {r['max_norm_err']:.3e}"
             if "max_norm_err" in r else "")
+    lib = f" library {r['library_ms']:.4f} ms" if r.get("library_ms") is not None else ""
+    if "searchsorted_ms" in r:
+        lib += f" searchsorted {r['searchsorted_ms']:.4f} ms"
     log(f"# {name} K={K} {where} ({r['live_slots']:.0f} live slots): max_abs_err "
         f"{r['max_abs_err']:.3e}{norm} kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
-        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){lib}")
 
 
 def build_report():
@@ -248,14 +349,19 @@ def build_report():
 
 def kernel_phase(main_inputs):
     """Every kernel against its plain version and timed, at K = 96 and 192:
-    on synthetic packed inputs, and (K1-K3) on the main path's own packed
-    input of each stage's first iteration (main_inputs)."""
-    from gflow_tpu_torch.ops import binning, cuda_raster
-
+    on synthetic packed inputs and sorted streams, and on the main path's
+    own packed input and sorted stream of each stage's first iteration
+    (main_inputs); K4 also on one two-class binning."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     n_tx, n_ty = -(-W // 16), -(-H // 16)
     T, F = n_tx * n_ty, 4
     rows = {}
+    # K4's sorted streams: one at M=8 (capacity x 8 entries), the main
+    # path's own (the same at every K: K only cuts the lists) and the
+    # two-class stream of the full stage's projection
+    streams = {"synthetic": synthetic_stream(torch.Generator(device="cuda").manual_seed(1), T),
+               **{f"main {stage}": rec["stream"] for stage, rec in main_inputs[96].items()},
+               "two-class": two_class_stream(main_inputs[96]["full"]["bin_call"])}
     for K in (96, 192):
         bg = torch.tensor([0.0, 0.0, 0.0, 0.0], device="cuda")
         for with_cov in (False, True):
@@ -268,26 +374,8 @@ def kernel_phase(main_inputs):
         g = torch.randn((T, 256, F), generator=gen, device="cuda")
         rows[("composite_bwd", K, "synthetic")] = bwd_row(attrs, counts, bg, g, n_tx, False)
 
-        # K4: the sorted id stream at M=8 (capacity x 8 entries)
-        L = CAPACITY * 8
-        tiles = torch.sort(torch.randint(0, T + 1, (L,), generator=gen, device="cuda",
-                                         dtype=torch.int32)).values
-        idx_s = torch.randint(0, CAPACITY, (L,), generator=gen, device="cuda",
-                              dtype=torch.int32)
-        starts = torch.searchsorted(tiles, torch.arange(T + 1, dtype=torch.int32,
-                                                        device="cuda"), out_int32=True)
-        tcounts = (starts[1:] - starts[:T]).contiguous()
-        starts = starts[:T].contiguous()
-        got = binning.pack_tile_lists(idx_s, starts, tcounts, K)
-        want = binning.pack_tile_lists_plain(idx_s, starts, tcounts, K)
-        assert torch.equal(got, want), "K4 differs from the plain gather"
-        ms = kernel_ms(lambda: binning.pack_tile_lists(idx_s, starts, tcounts, K))
-        plain_ms = cuda_ms(lambda: binning.pack_tile_lists_plain(idx_s, starts, tcounts, K))
-        read = float(tcounts.clamp_max(K).sum())
-        b_ms, b_by = bound(0.0, 4 * (read + 2 * T + T * K))
-        rows[("pack_tile_lists", K, "synthetic")] = dict(
-            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            live_slots=read)
+        for where, stream in streams.items():
+            rows[("bin_tail", K, where)] = tail_row(stream, K, where)
 
         for stage, rec in main_inputs[K].items():
             a, c, b, nt, cov = (rec[k] for k in ("attrs", "counts", "bg", "n_tx", "with_cov"))
@@ -322,11 +410,39 @@ def capture_packed():
         yield calls
 
 
+@contextmanager
+def capture_binning():
+    """Record the sorted stream of every binning tail (bin_tail's inputs but
+    K) and the input of every bin_gaussians call made through ops.render
+    while the block runs."""
+    from gflow_tpu_torch.ops import binning, render
+
+    got = {"streams": [], "calls": []}
+    tail, bin_gaussians = binning.bin_tail, render.bin_gaussians
+
+    def record_tail(key_s, order, idx_flat, nbits, T, K):
+        got["streams"].append((key_s.clone(), order.clone(),
+                               idx_flat.clone() if isinstance(idx_flat, torch.Tensor)
+                               else idx_flat, nbits, T))
+        return tail(key_s, order, idx_flat, nbits, T, K)
+
+    def record_call(*args, **kw):
+        got["calls"].append((tuple(a.detach().clone() if isinstance(a, torch.Tensor) else a
+                                   for a in args), kw))
+        return bin_gaussians(*args, **kw)
+
+    with mock.patch.object(binning, "bin_tail", record_tail), \
+         mock.patch.object(render, "bin_gaussians", record_call):
+        yield got
+
+
 def main_path_inputs(scene):
     """The packed compositor input and upstream gradient of the canonical
     frame's first iteration of each stage: camera-only (K2 + K3, CA = 11)
     and full (K1 + K3, CA = 10), from bench.py's scene and targets; at the
-    scene's K = 96 and, binned by the same code, at K = 192."""
+    scene's K = 96 and, binned by the same code, at K = 192. Each record
+    also holds the iteration's sorted stream ("stream") and bin_gaussians
+    input ("bin_call")."""
     import dataclasses
 
     from gflow_tpu_torch.opt.losses import flow_prior_terms
@@ -347,12 +463,13 @@ def main_path_inputs(scene):
                               render=dataclasses.replace(rcfg, max_per_tile=K))
             prior = flow_prior_terms(state, tg, camera_only, W, H)
             leaves = [x.detach().requires_grad_() for x in params]
-            with capture_packed() as calls:
+            with capture_packed() as calls, capture_binning() as binned:
                 total = _forward(Params(*leaves), n_alive, state, tg, intr, dyn.weights, cfg,
                                  flow_prior=prior)[0]
                 torch.autograd.grad(total, leaves, allow_unused=True)
             (rec,) = calls
             assert "g" in rec and rec["with_cov"] == camera_only
+            (rec["stream"],), (rec["bin_call"],) = binned["streams"], binned["calls"]
             inputs[K][stage] = rec
     return inputs
 
@@ -429,7 +546,7 @@ def plain_versions():
     from gflow_tpu_torch.ops import binning, composite, cuda_raster
 
     with mock.patch.object(cuda_raster, "packed_composite", composite.composite_packed), \
-         mock.patch.object(binning, "pack_tile_lists", binning.pack_tile_lists_plain):
+         mock.patch.object(binning, "bin_tail", binning.bin_tail_plain):
         yield
 
 
@@ -638,6 +755,53 @@ def time_frame(scene):
     return result
 
 
+def device_rows(prof):
+    """(device us, count, name) of every device kernel in a torch.profiler
+    run: device rows only, since an operator's row repeats its kernels'
+    time."""
+    from torch.autograd import DeviceType
+
+    return [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+
+
+def device_profile(fn, n=20):
+    """Device kernels and device ms per call of fn(), from torch.profiler
+    over n calls after one warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    if not rows:
+        return {"kernels_per_call": "not measured", "device_ms_per_call": "not measured"}
+    return {"kernels_per_call": sum(r[1] for r in rows) / n,
+            "device_ms_per_call": sum(r[0] for r in rows) / 1e3 / n,
+            "kernels": [{"name": k[:90], "calls": c / n, "ms": us / 1e3 / n}
+                        for us, c, k in sorted(rows, reverse=True)]}
+
+
+def profile_binning(main_inputs):
+    """The binning layer alone: bin_gaussians, and its tail from the sorted
+    stream, on each stage's first-iteration input (the stage runs one
+    binning per iteration), from torch.profiler."""
+    from gflow_tpu_torch.ops import binning
+
+    out = {}
+    for stage, rec in main_inputs[96].items():
+        (args, kw), (key_s, order, idx_flat, nbits, T) = rec["bin_call"], rec["stream"]
+        K = kw["max_per_tile"]
+        out[stage] = {
+            "bin_gaussians": device_profile(lambda: binning.bin_gaussians(*args, **kw)),
+            "tail": device_profile(lambda: binning.bin_tail(key_s, order, idx_flat, nbits, T, K))}
+    log(f"# binning profile per call (one call per iteration): {json.dumps(out)}")
+    return out
+
+
 def profile_iterations(scene, iters=20):
     """Where an iteration's time goes: a full stage of `iters` iterations
     (no densify, the final forward included) from the scene's init, run
@@ -645,7 +809,6 @@ def profile_iterations(scene, iters=20):
     device time. Device busy time is the sum of the device kernels' times;
     the profiler slows the host, so the idle share is taken against the
     unprofiled run of the same stage."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from gflow_tpu_torch.opt.state import init_frame_state
@@ -669,9 +832,7 @@ def profile_iterations(scene, iters=20):
         train_stage(params, state, tg, intr, gen, cfg, dyn_full)
         torch.cuda.synchronize()
         profiled_wall_ms = (time.perf_counter() - t0) * 1e3
-    # device kernels only: an operator's row repeats the time of its kernels
-    rows = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows = device_rows(prof)
     busy = sum(r[0] for r in rows) / 1e3 / iters
     top = [{"name": k[:70], "ms_per_iter": us / 1e3 / iters, "calls_per_iter": c / iters}
            for us, c, k in sorted(rows, reverse=True)[:12]]
@@ -703,18 +864,20 @@ def main():
 
     build_report()
     scene = bench_scene()
-    rows = kernel_phase(main_path_inputs(scene))
+    inputs = main_path_inputs(scene)
+    rows = kernel_phase(inputs)
     launches = main_path(scene)
     frame = time_frame(scene)
     log(f"# canonical frame (150 camera + 300 full iterations), {smi}: "
         f"camera {frame['cam_ms_per_iter']:.3f} ms/iter, full {frame['full_ms_per_iter']:.3f} "
         f"ms/iter, {frame['s_per_frame']:.3f} s/frame")
     profile_iterations(scene)
+    profile_binning(inputs)
 
     replaces = {"composite_fwd": "gflow_tpu/ops/pallas_raster.py:127",
                 "composite_fwd_cov": "gflow_tpu/ops/pallas_raster.py:127",
                 "composite_bwd": "gflow_tpu/ops/pallas_raster.py:172",
-                "pack_tile_lists": "gflow_tpu/ops/binning.py:293"}
+                "bin_tail": "gflow_tpu/ops/binning.py:293"}
     kernels = []
     for name, (src, _, _) in _build.KERNELS.items():
         r = rows[(name, 96, "synthetic")]
@@ -722,15 +885,22 @@ def main():
                "replaces": replaces[name],
                "launches": launches[name], "max_abs_err": r["max_abs_err"],
                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-               "bound_by": r["bound_by"], "library_ms": None}
+               "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
         if "max_norm_err" in r:  # K3: also the error normalized by max |ref| per column
             row["max_norm_err"] = r["max_norm_err"]
-        # the same measurements on the main path's own input (K = 96)
-        main = {where: {k: v for k, v in rm.items() if k in ("ms", "bound_ms", "max_abs_err")}
-                for (n, k, where), rm in rows.items()
-                if n == name and k == 96 and where.startswith("main")}
+        if "searchsorted_ms" in r:  # K4: the library call for its segment starts alone
+            row["searchsorted_ms"] = r["searchsorted_ms"]
+        # the same measurements on the main path's own input (K = 96), and
+        # K4's on the two-class stream
+        keep = ("ms", "bound_ms", "max_abs_err", "library_ms", "searchsorted_ms")
+        other = {where: {k: v for k, v in rm.items() if k in keep}
+                 for (n, k, where), rm in rows.items()
+                 if n == name and k == 96 and where != "synthetic"}
+        main = {w: v for w, v in other.items() if w.startswith("main")}
         if main:
             row["main_path_input"] = main
+        if "two-class" in other:
+            row["two_class_input"] = other["two-class"]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -41,8 +41,7 @@ KERNELS = {
                           (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I)),
     "composite_bwd": ("composite.cu", "gflow_composite_bwd",
                       (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I)),
-    "pack_tile_lists": ("pack.cu", "gflow_pack_tile_lists",
-                        (_P, _P, _P, _P, _I, _I)),
+    "bin_tail": ("pack.cu", "gflow_bin_tail", (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I)),
 }
 
 # launches per kernel name since the last reset (``LAUNCHES.clear()``)

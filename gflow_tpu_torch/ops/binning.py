@@ -7,10 +7,10 @@ Counterpart of ``gflow_tpu/ops/binning.py``:
    two-class emission gives the largest splats the full grid and every
    other splat a small one;
 2. one ``torch.sort`` orders packed int32 (tile, depth-bits) keys;
-3. per-tile starts come from ``torch.searchsorted`` over the sorted tiles;
-4. the first K entries of each tile are packed into a dense (T, K) index
-   matrix (-1 = empty) — kernel K4 (``csrc/pack.cu``) on CUDA tensors, the
-   plain masked gather on CPU tensors.
+3. the tail (``bin_tail``) finds each tile's segment of the sorted stream
+   and packs its first K ids into a dense (T, K) index matrix (-1 =
+   empty): kernel K4 (``csrc/pack.cu``, one launch) on CUDA tensors, the
+   plain searchsorted and masked gather on CPU tensors.
 
 The index matrix is integer data; gradients flow through the values
 gathered with it in the compositor.
@@ -102,18 +102,16 @@ def bin_gaussians(uv, depth, radius, W: int, H: int, max_per_tile: int = 256,
         raise ValueError(f"too many tiles ({T}) for int32 packed sort keys")
     depth_bits = depth[:, 0].clamp_min(0.0).contiguous().view(torch.int32) >> (
         31 - depth_nbits)
-    ids = torch.arange(N, dtype=torch.int32, device=dev)
 
-    def flat_keys(tile, dbits, idx):
-        key = (tile << depth_nbits) | dbits[:, None]
-        return key.reshape(-1), idx[:, None].expand_as(tile).reshape(-1)
+    def flat_keys(tile, dbits):
+        return ((tile << depth_nbits) | dbits[:, None]).reshape(-1)
 
     two_class = (small_tiles_per_gaussian > 0
                  and _rect_grid_dims(small_tiles_per_gaussian) != (MX, MY))
     large_clamped = torch.zeros((), dtype=torch.int32, device=dev)
     if not two_class:
-        tile = _emit_candidates(uv, rect, MX, MY, visible, n_tx, T)
-        key_flat, idx_flat = flat_keys(tile, depth_bits, ids)
+        key_flat = flat_keys(_emit_candidates(uv, rect, MX, MY, visible, n_tx, T), depth_bits)
+        idx_flat = MX * MY  # Gaussian j emits entries [j G, (j + 1) G)
     else:
         MXs, MYs = _rect_grid_dims(small_tiles_per_gaussian)
         rminx, rmaxx, rminy, rmaxy = rect
@@ -131,43 +129,87 @@ def bin_gaussians(uv, depth, radius, W: int, H: int, max_per_tile: int = 256,
         tile_s = _emit_candidates(uv, rect, MXs, MYs, visible & ~in_large, n_tx, T)
         rect_l = tuple(r[lidx] for r in rect)
         tile_l = _emit_candidates(uv[lidx], rect_l, MX, MY, selected, n_tx, T)
-        ks, is_ = flat_keys(tile_s, depth_bits, ids)
-        kl, il = flat_keys(tile_l, depth_bits[lidx], lidx.to(torch.int32))
-        key_flat = torch.cat([ks, kl])
-        idx_flat = torch.cat([is_, il])
+        key_flat = torch.cat([flat_keys(tile_s, depth_bits),
+                              flat_keys(tile_l, depth_bits[lidx])])
+        ids = torch.arange(N, dtype=torch.int32, device=dev)
+        idx_flat = torch.cat([ids[:, None].expand_as(tile_s).reshape(-1),
+                              lidx.to(torch.int32)[:, None].expand_as(tile_l).reshape(-1)])
 
     key_s, order = torch.sort(key_flat)
-    idx_s = idx_flat[order].contiguous()
-    tile_s = key_s >> depth_nbits
-    starts = torch.searchsorted(
-        tile_s, torch.arange(T + 1, dtype=torch.int32, device=dev),
-        side="left", out_int32=True)  # starts[T] = first sentinel position
-    tile_counts = starts[1:] - starts[:T]
-    tile_lists = pack_tile_lists(idx_s, starts[:T].contiguous(), tile_counts,
-                                 max_per_tile)
+    tile_lists, tile_counts = bin_tail(key_s, order, idx_flat, depth_nbits, T, max_per_tile)
     return TileBins(tile_lists=tile_lists, tile_counts=tile_counts,
                     large_clamped=large_clamped)
 
 
-def pack_tile_lists_plain(idx_s, starts, tile_counts, K: int) -> torch.Tensor:
-    """tile_lists[t, k] = idx_s[starts[t] + k] for k < tile_counts[t], else -1
-    (the masked gather of gflow_tpu/ops/binning.py:229-234)."""
-    L = idx_s.shape[0]
-    pos = starts[:, None] + torch.arange(K, dtype=torch.int32, device=idx_s.device)[None, :]
-    in_seg = pos < (starts + tile_counts)[:, None]
-    pos = pos.clamp_max(L - 1).long()
-    return torch.where(in_seg, idx_s[pos], -1).to(torch.int32)
+def entry_ids(idx_flat, L: int, device) -> torch.Tensor:
+    """The (L,) int32 Gaussian id of each emitted entry: idx_flat itself
+    where it is an id array, j // G where it is a group size G (Gaussian j
+    emitted entries [j G, (j + 1) G)), built as the single-class emission
+    once built it: an arange over the Gaussians and an expand copy."""
+    if not isinstance(idx_flat, int):
+        return idx_flat
+    ids = torch.arange(-(-L // idx_flat), dtype=torch.int32, device=device)
+    return ids[:, None].expand(-1, idx_flat).reshape(-1)[:L]
 
 
-def pack_tile_lists(idx_s, starts, tile_counts, K: int) -> torch.Tensor:
-    """Kernel K4 on CUDA tensors (replaces the Pallas
-    ``_rotate_pack_kernel``); the plain gather on CPU tensors."""
-    if not idx_s.is_cuda:
-        return pack_tile_lists_plain(idx_s, starts, tile_counts, K)
-    T = starts.shape[0]
-    for name, x in (("idx_s", idx_s), ("starts", starts), ("tile_counts", tile_counts)):
-        if x.dtype != torch.int32 or not x.is_contiguous() or x.device != idx_s.device:
-            raise ValueError(f"{name}: need a contiguous int32 tensor on {idx_s.device}")
-    out = torch.empty((T, K), dtype=torch.int32, device=idx_s.device)
-    _build.launch("pack_tile_lists", idx_s, starts, tile_counts, out, T, K)
-    return out
+def kernel_ids(idx_flat):
+    """idx_flat as K4's C entry point takes it: (the id tensor, 1), or (0, G),
+    a null id array, for a group size G."""
+    return (0, idx_flat) if isinstance(idx_flat, int) else (idx_flat, 1)
+
+
+def slot_bytes(idx_flat) -> int:
+    """Bytes the tail must read per live slot: its entry of ``order``
+    (int64) and, where idx_flat is an id array, the entry's id (int32)."""
+    return 8 if isinstance(idx_flat, int) else 12
+
+
+def bin_tail_plain(key_s, order, idx_flat, depth_nbits: int, T: int, K: int):
+    """The tail of binning in plain PyTorch (see ``bin_tail``): the
+    searchsorted segment starts (gflow_tpu/ops/binning.py:207), the counts,
+    and the masked gather tile_lists[t, k] = idx_s[starts[t] + k] for
+    k < tile_counts[t], else -1 (gflow_tpu/ops/binning.py:229-234), with
+    idx_s = the ids in sorted order."""
+    L, dev = key_s.shape[0], key_s.device
+    starts = torch.searchsorted(key_s >> depth_nbits,
+                                torch.arange(T + 1, dtype=torch.int32, device=dev),
+                                side="left", out_int32=True)
+    idx_s = entry_ids(idx_flat, L, dev)[order].to(torch.int32)
+    pos = starts[:T, None] + torch.arange(K, dtype=torch.int32, device=dev)[None, :]
+    in_seg = pos < starts[1:, None]
+    # one -1 past the end, so that L = 0 gathers too
+    idx_s = torch.cat([idx_s, idx_s.new_full((1,), -1)])
+    tile_lists = torch.where(in_seg, idx_s[pos.clamp_max(L).long()], -1).to(torch.int32)
+    return tile_lists, starts[1:] - starts[:T]
+
+
+def bin_tail(key_s, order, idx_flat, depth_nbits: int, T: int, K: int):
+    """(tile_lists (T, K) int32, tile_counts (T,) int32) from the sorted
+    stream: key_s (L,) int32 sorted packed keys (tile = key >> depth_nbits,
+    in [0, T], T = sentinel), order (L,) int64 the sort's permutation, and
+    idx_flat the Gaussian id of each emitted entry: an (L,) int32 tensor, or
+    an int G when Gaussian j emitted entries [j G, (j + 1) G).
+
+    Kernel K4 (replaces the Pallas ``_rotate_pack_kernel`` and the
+    searchsorted around it) as one launch on CUDA tensors; the plain
+    version, ``bin_tail_plain``, on CPU tensors."""
+    if not key_s.is_cuda:
+        return bin_tail_plain(key_s, order, idx_flat, depth_nbits, T, K)
+    dev, L = key_s.device, key_s.shape[0]
+    ids, group = kernel_ids(idx_flat)
+    for name, x, dtype in (("key_s", key_s, torch.int32), ("order", order, torch.int64),
+                           ("idx_flat", ids, torch.int32)):
+        if isinstance(x, int):  # no id array: the ids come from the group size
+            continue
+        if x.dtype != dtype or x.shape != (L,) or not x.is_contiguous() or x.device != dev:
+            raise ValueError(f"{name}: need a contiguous {dtype} ({L},) tensor on {dev}")
+    if group < 1:
+        raise ValueError(f"idx_flat: need an id tensor or a group size >= 1, got {idx_flat}")
+    if L >= 2**31 or T < 1 or K < 1 or not 0 <= depth_nbits <= 31:
+        raise ValueError(f"bin_tail takes L < 2^31, T >= 1, K >= 1, 0 <= depth_nbits <= 31 "
+                         f"(L={L}, T={T}, K={K}, depth_nbits={depth_nbits})")
+    tile_counts = torch.empty(T, dtype=torch.int32, device=dev)
+    tile_lists = torch.empty((T, K), dtype=torch.int32, device=dev)
+    _build.launch("bin_tail", key_s, order, ids, group, tile_counts, tile_lists, L, T, K,
+                  depth_nbits)
+    return tile_lists, tile_counts

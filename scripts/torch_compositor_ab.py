@@ -20,47 +20,22 @@ chiprun_out/compositor_ab.json.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import json
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 import torch
 
-ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT))
+from torch_ab import ROOT, TURNS, build, c_function, card, write_rows
 
-import chip_smoke as cs  # noqa: E402
+import chip_smoke as cs  # noqa: E402  (torch_ab put the root on sys.path)
 from gflow_tpu_torch.ops import _build  # noqa: E402
 from gflow_tpu_torch.ops.composite import P_PIX  # noqa: E402
 
 
-def build(source: Path, tag: str) -> ctypes.CDLL:
-    out = _build.BUILD_DIR / "ab" / f"composite-{tag}.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(source)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}{proc.stderr}")
-    return ctypes.CDLL(str(out))
-
-
 def bind(lib):
-    fns = {}
-    for name in ("composite_fwd", "composite_fwd_cov", "composite_bwd"):
-        _, symbol, argtypes = _build.KERNELS[name]
-        fn = getattr(lib, symbol)
-        fn.argtypes, fn.restype = (*argtypes, ctypes.c_void_p), ctypes.c_int
-
-        def call(*args, fn=fn, name=name):
-            cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a) for a in args]
-            rc = fn(*cargs, torch.cuda.current_stream().cuda_stream)
-            if rc != 0:
-                raise RuntimeError(f"{name} failed to launch: cudaError {rc}")
-        fns[name] = call
-    return fns
+    return {name: c_function(lib, *_build.KERNELS[name][1:])
+            for name in ("composite_fwd", "composite_fwd_cov", "composite_bwd")}
 
 
 def compare(libs, attrs, counts, bg, n_tx, with_cov, g, where, K):
@@ -99,7 +74,7 @@ def compare(libs, attrs, counts, bg, n_tx, with_cov, g, where, K):
                                            atol=5e-4, rtol=1e-3)
             diff = float((outs["baseline"][0] - outs["change"][0]).abs().max())
         times = {}
-        for tag in ("baseline", "change", "change", "baseline"):
+        for tag in TURNS:
             times.setdefault(tag, []).append(cs.kernel_ms(lambda: fn(tag)))
         rows.append(dict(kernel=name, input=where, K=K, live_slots=float(counts.sum()),
                          baseline_ms=times["baseline"], change_ms=times["change"],
@@ -115,14 +90,11 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("torch_compositor_ab: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    smi = card()
     print(smi, flush=True)
     t0 = time.perf_counter()
-    libs = {"baseline": bind(build(args.baseline / "gflow_tpu_torch/csrc/composite.cu",
-                                   "baseline")),
-            "change": bind(build(ROOT / "gflow_tpu_torch/csrc/composite.cu", "change"))}
+    libs = {"baseline": bind(build(args.baseline, "composite.cu", "baseline")),
+            "change": bind(build(ROOT, "composite.cu", "change"))}
     print(f"# two nvcc builds: {time.perf_counter() - t0:.1f} s", flush=True)
 
     n_tx, n_ty = -(-cs.W // 16), -(-cs.H // 16)
@@ -147,11 +119,7 @@ def main():
         even = torch.full_like(rec["counts"], round(float(rec["counts"].float().mean())))
         rows += compare(libs, rec["attrs"], even, rec["bg"], rec["n_tx"], False, rec["g"],
                         "main full even", K)
-    for r in rows:
-        print(json.dumps({**r, "card": smi}), flush=True)
-    out = ROOT / "chiprun_out" / "compositor_ab.json"
-    out.parent.mkdir(exist_ok=True)
-    out.write_text(json.dumps({"card": smi, "rows": rows}, indent=1))
+    write_rows("compositor_ab", smi, rows)
 
 
 if __name__ == "__main__":

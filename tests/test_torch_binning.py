@@ -10,7 +10,13 @@ Tolerances: projection is f32 elementwise math in the same order in both
 packages; uv/depth/conic agree to 1e-4 relative. radius = ceil(3 sqrt(lam))
 can flip by one pixel where 3 sqrt(lam) sits within rounding of an
 integer, so radius is checked to agree on all but a handful of points and
-by at most 1."""
+by at most 1.
+
+The binning tail (``bin_tail_plain``, the oracle of kernel K4) is held
+exactly against an independent NumPy construction of its definition, on
+the sorted-stream cases of tests/test_torch_tail_cases.py, on which
+tests/test_torch_cuda.py holds the kernel to the same plain version on the
+card."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +31,7 @@ from gflow_tpu_torch.ops import binning as tbin
 from gflow_tpu_torch.ops.projection import compute_cov3d as t_cov3d
 from gflow_tpu_torch.ops.projection import project_gaussians as t_project
 from gflow_tpu_torch.ops.projection import supported_max_radius as t_smr
+from test_torch_tail_cases import TAIL_CASES, tail_stream, tail_tensors
 
 
 def scene(n, seed, spread=1.0, scale_hi=0.15):
@@ -124,16 +131,79 @@ def test_two_class_cap_clamps_like_jax():
     np.testing.assert_array_equal(bt.tile_lists.numpy(), np.asarray(bj.tile_lists))
 
 
+def numpy_tail(key_s, order, idx_flat, nbits, T, K):
+    """The tail's definition, entry by entry: starts[t] = first i with
+    tile(i) >= t (L if none), counts = differences, lists[t, k] = the id of
+    sorted entry starts[t] + k for k < min(count, K), else -1."""
+    tile = key_s >> nbits
+    L = len(tile)
+    starts = [next((i for i in range(L) if tile[i] >= t), L) for t in range(T + 1)]
+    counts = np.diff(starts).astype(np.int32)
+    lists = np.full((T, K), -1, np.int32)
+    for t in range(T):
+        for k in range(min(counts[t], K)):
+            j = order[starts[t] + k]
+            lists[t, k] = j // idx_flat if isinstance(idx_flat, int) else idx_flat[j]
+    return lists, counts
+
+
+@pytest.mark.parametrize("case", TAIL_CASES)
+def test_bin_tail_plain_matches_numpy_definition(case):
+    stream = tail_stream(case)
+    lists, counts = tbin.bin_tail_plain(*tail_tensors(stream, "cpu"))
+    want_lists, want_counts = numpy_tail(*stream)
+    assert lists.dtype == counts.dtype == torch.int32
+    np.testing.assert_array_equal(counts.numpy(), want_counts)
+    np.testing.assert_array_equal(lists.numpy(), want_lists)
+    K = stream[-1]
+    # the case under test really occurs
+    if case == "empty_tiles":
+        assert (want_counts[[0, 1, 4, 6, 7, 8, 10, 11]] == 0).all()
+        assert (want_counts[[2, 3, 5, 9]] > 0).all()
+    elif case in ("all_sentinel", "empty_stream"):
+        assert not want_counts.any() and (want_lists == -1).all()
+    elif case == "one_tile_over_K":
+        assert want_counts[4] > K and (want_lists[4] >= 0).all()
+    elif case == "two_class":
+        assert (want_lists >= 0).sum() > 0 and want_counts.sum() < len(stream[0])
+
+
 def test_pack_tile_lists_cpu_is_the_masked_gather():
-    """On CPU tensors the K4 wrapper is the plain gather of
-    gflow_tpu/ops/binning.py:229-234, including the -1 fill and K cap."""
+    """On CPU tensors the K4 wrapper (``bin_tail``) is the plain masked
+    gather of gflow_tpu/ops/binning.py:229-234, including the -1 fill and
+    the K cap: segments of 0-11 entries per tile, then sentinel entries."""
     rng = np.random.default_rng(7)
-    counts = rng.integers(0, 12, 20).astype(np.int32)
+    T, K, nbits = 20, 8, 20
+    counts = rng.integers(0, 12, T).astype(np.int32)
     starts = np.r_[0, np.cumsum(counts)[:-1]].astype(np.int32)
-    idx_s = rng.permutation(int(counts.sum()) + 5).astype(np.int32)
-    got = tbin.pack_tile_lists(torch.from_numpy(idx_s), torch.from_numpy(starts),
-                               torch.from_numpy(counts), 8).numpy()
-    for t in range(20):
-        c = min(counts[t], 8)
+    tiles = np.r_[np.repeat(np.arange(T), counts), np.full(5, T)]
+    key_s = (tiles << nbits).astype(np.int32)
+    idx_s = rng.permutation(len(key_s)).astype(np.int32)
+    order = rng.permutation(len(key_s))
+    idx_flat = np.empty_like(idx_s)
+    idx_flat[order] = idx_s  # so that idx_flat[order] == idx_s
+    got, got_counts = tbin.bin_tail(torch.from_numpy(key_s), torch.from_numpy(order),
+                                    torch.from_numpy(idx_flat), nbits, T, K)
+    np.testing.assert_array_equal(got_counts.numpy(), counts)
+    got = got.numpy()
+    for t in range(T):
+        c = min(counts[t], K)
         np.testing.assert_array_equal(got[t, :c], idx_s[starts[t]:starts[t] + c])
         assert (got[t, c:] == -1).all()
+
+
+@pytest.mark.parametrize("case", [c for c in TAIL_CASES if c != "two_class"])
+def test_group_size_ids_equal_materialized_ids(case):
+    """A group size G in place of the id array (single-class emission: the
+    kernel takes order // G) gives the lists of the materialized ids
+    (``entry_ids``), and those ids are j // G."""
+    key_s, order, G, nbits, T, K = tail_tensors(tail_stream(case), "cpu")
+    L = key_s.shape[0]
+    ids = tbin.entry_ids(G, L, "cpu")
+    assert ids.dtype == torch.int32 and ids.shape == (L,)
+    np.testing.assert_array_equal(ids.numpy(), np.arange(L) // G)
+    for got, want in zip(tbin.bin_tail(key_s, order, G, nbits, T, K),
+                         tbin.bin_tail(key_s, order, ids, nbits, T, K)):
+        assert torch.equal(got, want)
+    assert tbin.slot_bytes(G) == 8 and tbin.slot_bytes(ids) == 12
+    assert tbin.kernel_ids(G) == (0, G) and tbin.kernel_ids(ids)[0] is ids

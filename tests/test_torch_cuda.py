@@ -7,12 +7,14 @@ and skip without one; on the GPU machine run
 Tolerances: images atol 5e-4 / rtol 1e-3 (tests/test_pallas.py:42-44);
 coverage support exact where the plain coverage is clear of 0 by 1e-3;
 gradients normalized by max |ref| per column, atol 5e-4; K3 bitwise
-repeatable (no float atomics); K4 exact."""
+repeatable (no float atomics); K4 (the binning tail) exact, on the
+sorted-stream cases of tests/test_torch_tail_cases.py."""
 import numpy as np
 import pytest
 import torch
 
 from gflow_tpu_torch.ops import _build, binning, composite, cuda_raster
+from test_torch_tail_cases import TAIL_CASES, tail_stream, tail_tensors
 
 pytestmark = pytest.mark.cuda
 
@@ -75,15 +77,63 @@ def test_backward_kernel_matches_autograd(dev, with_cov, K):
     assert torch.equal(got, cuda_raster.composite_bwd(attrs, counts, bg, g, 4, with_cov))
 
 
-def test_pack_kernel_exact(dev):
-    T, K, L = 30, 16, 500
-    tiles = torch.sort(torch.randint(0, T + 1, (L,), dtype=torch.int32)).values.to(dev)
-    idx = torch.randperm(L).to(torch.int32).to(dev)
-    starts = torch.searchsorted(tiles, torch.arange(T + 1, dtype=torch.int32, device=dev),
-                                out_int32=True)
-    counts = (starts[1:] - starts[:T]).contiguous()
-    got = binning.pack_tile_lists(idx, starts[:T].contiguous(), counts, K)
-    assert torch.equal(got, binning.pack_tile_lists_plain(idx, starts[:T], counts, K))
+def assert_tail_equal(args):
+    got = binning.bin_tail(*args)
+    want = binning.bin_tail_plain(*args)
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == torch.int32 and g_.is_cuda
+        assert torch.equal(g_, w_)
+
+
+@pytest.mark.parametrize("case", TAIL_CASES)
+def test_bin_tail_kernel_equals_plain(dev, case):
+    assert_tail_equal(tail_tensors(tail_stream(case), dev))
+
+
+@pytest.mark.parametrize("ids", ["group", "tensor"])
+@pytest.mark.parametrize("K", [96, 192])
+def test_pack_kernel_exact(dev, K, ids):
+    """The canonical shapes: T = 1620 tiles of the 854x480 frame, L =
+    409,600 entries (51,200 Gaussians x 8); also with the keys at an offset
+    into their storage (an address that is not 16-byte aligned)."""
+    T, L, G = 1620, 409_600, 8
+    g = torch.Generator().manual_seed(K)
+    nbits = 31 - (T + 1).bit_length()
+    keys = (torch.randint(0, T + 1, (L,), generator=g) << nbits) | torch.randint(
+        0, 2 ** nbits, (L,), generator=g)
+    key_s, order = torch.sort(keys.to(torch.int32).to(dev))
+    idx_flat = G if ids == "group" else torch.randint(0, L // G, (L,), generator=g,
+                                                       dtype=torch.int32).to(dev)
+    assert_tail_equal((key_s, order, idx_flat, nbits, T, K))
+    shifted = torch.cat([key_s[:1], key_s])[1:]
+    assert shifted.data_ptr() % 16
+    assert_tail_equal((shifted, order, idx_flat, nbits, T, K))
+
+
+@pytest.mark.parametrize("small", [0, 8])
+def test_bin_gaussians_kernel_equals_plain(dev, monkeypatch, small):
+    """bin_gaussians single-class (no id array) and two-class through the
+    tail kernel against the same call through bin_tail_plain; one launch
+    per call."""
+    from gflow_tpu_torch.ops.projection import project_gaussians
+
+    Wd, Hd, n = 160, 96, 700
+    rng = np.random.default_rng(4)
+    xyz = torch.tensor(np.c_[rng.uniform(-1, 1, (n, 2)), rng.uniform(2, 6, (n, 1))],
+                       dtype=torch.float32, device=dev)
+    scale = torch.tensor(rng.uniform(0.02, 0.15, (n, 3)), dtype=torch.float32, device=dev)
+    rot = torch.tensor(rng.normal(size=(n, 4)), dtype=torch.float32, device=dev)
+    intr = torch.tensor([80.0, 80.0, Wd / 2, Hd / 2], device=dev)
+    proj = project_gaussians(xyz, scale, rot, intr, torch.eye(3, 4, device=dev), Wd, Hd)
+    kw = dict(max_per_tile=32, max_tiles_per_gaussian=48, small_tiles_per_gaussian=small)
+    _build.LAUNCHES.clear()
+    got = binning.bin_gaussians(proj["uv"], proj["depth"], proj["radius"], Wd, Hd, **kw)
+    assert dict(_build.LAUNCHES) == {"bin_tail": 1}
+    monkeypatch.setattr(binning, "bin_tail", binning.bin_tail_plain)
+    want = binning.bin_gaussians(proj["uv"], proj["depth"], proj["radius"], Wd, Hd, **kw)
+    assert torch.equal(got.tile_lists, want.tile_lists)
+    assert torch.equal(got.tile_counts, want.tile_counts)
+    assert (got.tile_counts > 32).any()  # some tiles overflow K
 
 
 def test_tile_compositor_gradients_and_launch_counts(dev, monkeypatch):
@@ -121,7 +171,7 @@ def test_tile_compositor_gradients_and_launch_counts(dev, monkeypatch):
     for gk, gp in zip(grads[0][1], grads[1][1]):
         ref = gp.abs().max()
         assert float(((gk - gp) / ref).abs().max()) <= 5e-4
-    assert _build.LAUNCHES["pack_tile_lists"] == 1
+    assert _build.LAUNCHES["bin_tail"] == 1
     assert _build.LAUNCHES["composite_fwd"] == 1 and _build.LAUNCHES["composite_bwd"] == 1
 
 
@@ -131,8 +181,12 @@ def test_wrappers_refuse_bad_input(dev):
         cuda_raster.composite_fwd(attrs.double(), counts, bg, 4)
     with pytest.raises(ValueError):
         cuda_raster.composite_fwd(attrs, counts.long(), bg, 4)
-    with pytest.raises(ValueError):
-        binning.pack_tile_lists(counts.long(), counts, counts, 8)
+    key_s, order, idx_flat, nbits, T, K = tail_tensors(tail_stream("two_class"), dev)
+    for bad in ((key_s.long(), order, idx_flat), (key_s, order.int(), idx_flat),
+                (key_s, order, idx_flat.long()), (key_s, order, idx_flat.cpu()),
+                (key_s, order, idx_flat[1:]), (key_s, order, 0), (key_s, order.cpu(), 4)):
+        with pytest.raises(ValueError):
+            binning.bin_tail(*bad, nbits, T, K)
 
 
 def check_fwd_bwd(attrs, counts, bg, n_tx, with_cov, seed=0):

@@ -23,11 +23,28 @@
    the first iteration's gradients of every parameter leaf (both stages),
    the loss trajectory and a multi-output render match the same run on
    the plain PyTorch versions (also on the card);
-5. times one frame at the canonical budget (150 camera + 300 full
+5. drives the port's fit_video (gflow_tpu_torch.pipeline.fit_video.main)
+   on a synthetic 4-frame sequence at 854x480 (tests/synth.py's static
+   camera layout, JPEG frames, 3 frames fitted) with 50,000 points, the
+   counters reset
+   just before and read just after: frame 0 on the snapshot path, then per
+   frame a camera-only stage and a full stage with its occ densify and
+   one error densify; depth cut to FIT's iterations. Checks every kernel
+   launched, the log directory (checkpoint schema, videos, pickles), the
+   final PSNR and the move segmentation; renders the final checkpoint
+   (render_scene) and the trajectory line set through the kernels and
+   through the plain versions, and the checkpoint loaded into a trainer;
+   runs a rebin_every=4 stage through both, and holds the lists rebuilt
+   after a densify against per-iteration binning; prints the trainer's
+   RenderConfig, K escalations, host libraries, native hull and its
+   telemetry beside the card's name and power limit;
+6. times one frame at the canonical budget (150 camera + 300 full
    iterations, occ densify at 0 and error densify every 100 x2) after one
-   warm-up frame; profiles a 20-iteration full stage and, alone, the
-   binning layer (bin_gaussians) on each stage's first-iteration input;
-6. prints the kernels JSON line, then as its last line
+   warm-up frame; profiles a 20-iteration full stage (its Chrome trace
+   written to logs/chip_smoke/profile/trace.json) and, alone, the binning
+   layer (bin_gaussians) on each stage's first-iteration input;
+7. prints the kernels JSON line (with each kernel's launches in the main
+   path and in fit_video), then as its last line
    {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero. Without CUDA it exits 1 and prints
@@ -35,6 +52,7 @@ no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -58,6 +76,7 @@ PEAK_FP32_FLOPS = 67e12    # H100 SXM, fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 W, H = 854, 480
 N_POINTS, CAPACITY = 50_000, 51_200
+SMI = "not read"  # nvidia-smi's name and power limit line, set by main()
 # fp32 operations per (pixel, live slot) that the function needs, counted
 # from csrc/composite.cu: alpha 17 (dx dy 2, power 9, min+exp+mul+clamp 4,
 # masks 2); K1 adds w 1 + feat 2F + T 2, K2 adds mul+max 2. K3 evaluates
@@ -755,6 +774,316 @@ def time_frame(scene):
     return result
 
 
+# ---------------------------------------------------------------------------
+# fit_video
+# ---------------------------------------------------------------------------
+
+FIT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "logs", "chip_smoke")
+# the npz schema of gflow_tpu/pipeline/trainer.py:886-916 (key -> dtype)
+CKPT_SCHEMA = {"xyz": "float32", "scale": "float32", "rotate": "float32",
+               "opacity": "float32", "rgb": "float32", "intr": "float32", "extr": "float32",
+               "still_mask": "bool", "last_uv": "float32", "move_seg": "uint8",
+               "width": "int64", "height": "int64"}
+# depth cut from the canonical 150 camera + 300 full iterations per frame
+FIT = dict(num_points=N_POINTS, iterations_first=100, iterations_camera=30,
+           iterations_after=60, camera_first=True, traj_num=16, lr=0.01, lr_camera=0.0,
+           lr_after=5e-3, lr_camera_after=1e-4, lambda_rgb=1.0, lambda_depth=0.1,
+           lambda_var=50.0, lambda_flow=0.01, lambda_still=1.0, densify_interval=50,
+           densify_times=1, densify_interval_after=30, densify_times_after=1)
+# PSNR (dB) of the final frame's render against its target: the same fit of
+# the same sequence scaled to 192x108 with 2,529 points (N_POINTS x the area
+# ratio) gave 34.85 dB on the CPU (scripts/torch_fit_video_floor.py); the
+# floor leaves room for the other scale
+PSNR_FLOOR = 28.0
+
+
+def synth_geometry(W, H):
+    """tests/synth.py's layout scaled off its 96x64 baseline by W, as there:
+    square size, initial corner, px/frame motion and focal length."""
+    sx = W / 96.0
+    return (max(4, int(round(14 * sx))), int(20 * sx), int(24 * H / 64.0),
+            max(1, int(round(6 * sx))), 80.0 * sx)
+
+
+def write_sequence(root, n_frames=4, W=W, H=H, seed=0):
+    """tests/synth.py's static-camera sequence (a textured background, a
+    moving square, depth, camera jsons, .flo flows, occ PNGs, epipolar move
+    masks, tracking.pkl) in the layout fit_video reads, through the port's
+    own writers; the frames are JPEGs, as gflow_tpu/pipeline/split_tapvid.py
+    writes a TAP-Vid sequence."""
+    import pickle
+    from pathlib import Path
+
+    from gflow_tpu_torch.core.io import imwrite, write_camera, write_flow
+
+    rng = np.random.default_rng(seed)
+    seq = Path(root) / "synth" / "synth"
+    seq.mkdir(parents=True)
+    for sfx in ("_depth_mast3r_s2", "_camera_mast3r_s2", "_flow_unimatch", "_epipolar"):
+        Path(str(seq) + sfx).mkdir()
+    yy, xx = np.meshgrid(np.linspace(0, 1, H), np.linspace(0, 1, W), indexing="ij")
+    bg = np.stack([xx, yy, 0.4 + 0.2 * np.sin(7 * xx) * np.cos(5 * yy)], -1)
+    bg = np.clip(bg + rng.normal(0, 0.02, bg.shape), 0, 1).astype(np.float32)
+    sq, x0, y0, vx, focal = synth_geometry(W, H)
+    Z_BG, Z_SQ = 2.0, 1.5
+    for t in range(n_frames):
+        cx, name = x0 + vx * t, f"{t:05d}"
+        img, depth = bg.copy(), np.full((H, W), Z_BG, np.float32)
+        img[y0:y0 + sq, cx:cx + sq] = [0.9, 0.2, 0.1]
+        depth[y0:y0 + sq, cx:cx + sq] = Z_SQ
+        in_sq = np.zeros((H, W), bool)
+        in_sq[y0:y0 + sq, cx:cx + sq] = True
+        imwrite(seq / f"{name}.jpg", (np.clip(img, 0, 1) * 255).astype(np.uint8))
+        np.save(str(seq) + f"_depth_mast3r_s2/{name}.npy", depth)
+        write_camera(str(seq) + f"_camera_mast3r_s2/{name}.json", focal, np.eye(4),
+                     (W / 2, H / 2))
+        imwrite(str(seq) + f"_epipolar/{name}_open.png", (in_sq * 255).astype(np.uint8))
+        if t < n_frames - 1:
+            flow = np.zeros((H, W, 2), np.float32)
+            flow[y0:y0 + sq, cx:cx + sq, 0] = vx
+            write_flow(str(seq) + f"_flow_unimatch/{name}_pred.flo", flow)
+            imwrite(str(seq) + f"_flow_unimatch/{name}_occ_bwd.png",
+                    np.zeros((H, W), np.uint8))
+    # TAP-Vid-style tracks: a 3x3 grid on the square, a background grid off
+    # its sweep corridor (static camera: a point moves only with the square)
+    qs = [(x0 + fx * sq, y0 + fy * sq, True) for fy in (0.25, 0.5, 0.75)
+          for fx in (0.25, 0.5, 0.75)]
+    for by in (0.15, 0.5, 0.85):
+        for bx in (0.1, 0.5, 0.9):
+            py = by * H
+            if y0 - 8 <= py <= y0 + sq + 8:
+                py = y0 - 20 if y0 > 30 else y0 + sq + 20
+            qs.append((bx * W, py, False))
+    pts = np.asarray([[((qx + vx * t * on_sq) / W, qy / H) for t in range(n_frames)]
+                      for qx, qy, on_sq in qs], np.float64)
+    with open(seq / "tracking.pkl", "wb") as f:
+        pickle.dump({"points": pts, "occluded": np.zeros(pts.shape[:2], bool)}, f)
+    return seq
+
+
+def host_libraries():
+    """What the fit_video path uses for image and video files here: PIL for
+    images, imageio's mp4 where it has an encoder, else PIL's MJPEG AVI."""
+    from gflow_tpu_torch.viz.video import _mp4_available
+
+    def importable(name):
+        try:
+            __import__(name)
+        except ImportError:
+            return False
+        return True
+
+    return {"PIL": importable("PIL"), "imageio": importable("imageio"),
+            "matplotlib": importable("matplotlib"),
+            "videos": "imageio mp4" if _mp4_available() else "MJPEG AVI"}
+
+
+def run_fit_video(root, device, **overrides):
+    """Write the sequence under `root` and run the port's fit_video on it;
+    returns (trainer, sequence path, wall seconds)."""
+    from gflow_tpu_torch.pipeline.fit_video import main as fit_video
+
+    kw = dict(FIT, **overrides)
+    W_, H_ = kw.pop("W", W), kw.pop("H", H)
+    seq = write_sequence(root, W=W_, H=H_)
+    t0 = time.perf_counter()
+    trainer = fit_video(sequence_path=seq, logs_suffix=os.path.join(str(root), "logs"),
+                        device=device, **kw)
+    return trainer, seq, time.perf_counter() - t0
+
+
+def fit_video_outputs(trainer, W_=W, H_=H):
+    """The log directory holds what tests/test_fit_video.py:44-59 checks, 3
+    checkpoints of the JAX package's schema, a final render above
+    PSNR_FLOOR and a move segmentation that fills the square's last
+    position. Returns (psnr, segmentation fill)."""
+    import pickle
+
+    d = trainer.dir
+    imgs = os.listdir(os.path.join(d, "images"))
+    assert any(f.startswith("img_00000") for f in imgs) and any(
+        f.startswith("img_00002") for f in imgs), imgs
+    ckpts = sorted(os.listdir(os.path.join(d, "ckpt")))
+    assert len(ckpts) == 3, ckpts
+    for c in ckpts:
+        z = np.load(os.path.join(d, "ckpt", c))
+        got = {k: str(z[k].dtype) for k in z.files}
+        assert got == CKPT_SCHEMA, (c, got)
+    for name in ("sequence", "sequence_optimize", "training_rgb", "sequence_traj"):
+        assert any(os.path.exists(os.path.join(d, name + ext)) for ext in (".mp4", ".avi")), name
+    with open(os.path.join(d, "sequence_traj.pkl"), "rb") as f:
+        traj = pickle.load(f)
+    assert len(traj) == 3 and traj[0].ndim == 2
+    final = trainer.render_views(("rgb",))["rgb"].cpu().numpy()
+    psnr = float(-10 * np.log10(np.mean((final - trainer.gt_image) ** 2)))
+    sq, x0, y0, vx, _ = synth_geometry(W_, H_)
+    m, cx = max(2, sq // 7), x0 + 2 * vx  # the square at frame 2, inset by 1/7 of its side
+    fill = float(trainer.move_seg[y0 + m:y0 + sq - m, cx + m:cx + sq - m].mean())
+    return psnr, fill
+
+
+@contextmanager
+def compositor_shapes():
+    """Count the packed compositor calls by shape (K1/K2 by K and F) while
+    the block runs; every call still goes to cuda_raster.packed_composite."""
+    import collections
+
+    from gflow_tpu_torch.ops import cuda_raster
+
+    counts, packed = collections.Counter(), cuda_raster.packed_composite
+
+    def tally(g_attrs, counts_, bg, n_tx, with_cov=False):
+        T, K, CA = g_attrs.shape
+        counts[f"{'K2' if with_cov else 'K1'} K={K} F={CA - 6 - int(with_cov)}"] += 1
+        return packed(g_attrs, counts_, bg, n_tx, with_cov)
+
+    with mock.patch.object(cuda_raster, "packed_composite", tally):
+        yield counts
+
+
+def fit_video_phase(scene):
+    """The port's fit_video at 854x480 / 50,000 points on the card (depth
+    cut: FIT), with the launch counts reset just before and read just
+    after; then the final checkpoint rendered (render_scene) and the
+    trajectory line set drawn through the kernels and through the plain
+    versions, and the rebinning checks (rebin_check)."""
+    import shutil
+
+    from gflow_tpu_torch.ops import _build
+    from gflow_tpu_torch.ops.render import render_scene
+    from gflow_tpu_torch.pipeline.trainer import GFlowTrainer
+    from gflow_tpu_torch.utils.hull import native_loaded
+
+    shutil.rmtree(FIT_DIR, ignore_errors=True)
+    libs = host_libraries()
+    log(f"# fit_video: host libraries {json.dumps(libs)}; native hull library loaded: "
+        f"{native_loaded()}")
+    _build.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    with compositor_shapes() as shapes:
+        trainer, seq, wall = run_fit_video(FIT_DIR, "cuda")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    log(f"# fit_video launches: {launches}; packed compositor calls by shape: "
+        f"{json.dumps(dict(sorted(shapes.items())))}")
+    for name in _build.KERNELS:
+        assert launches.get(name, 0) > 0, f"kernel {name} never launched in fit_video"
+    rc = trainer.render_config
+    log(f"# fit_video RenderConfig: M={rc.max_tiles_per_gaussian} K={rc.max_per_tile} "
+        f"small={rc.small_tiles_per_gaussian}; capacity {trainer.capacity}; K escalations "
+        f"{json.dumps(trainer.k_escalations)}; n_alive {trainer.current_pts_num()}")
+    assert trainer.capacity == 75_776, trainer.capacity
+    psnr, fill = fit_video_outputs(trainer)
+    log(f"# fit_video final frame PSNR {psnr:.3f} dB (floor {PSNR_FLOOR}); move "
+        f"segmentation fill of the square {fill:.1f} / 255 (floor 50)")
+    assert psnr > PSNR_FLOOR and fill > 50, (psnr, fill)
+
+    summary = trainer.telemetry.summary()
+    medians = {k: v["median_sec_per_call"] for k, v in summary["phases"].items()}
+    log(f"# fit_video telemetry ({SMI}): {summary['sec_per_frame']} s/frame over "
+        f"{summary['frames']} frames, {summary['opt_steps_per_sec']} steps/s, wall "
+        f"{wall:.2f} s; phase medians (s): {json.dumps(medians)}")
+    log(f"# fit_video telemetry summary: {json.dumps(summary)}")
+
+    # the final checkpoint, as a saved scene, through the kernels and through
+    # the plain versions; then loaded into a trainer, which renders the same
+    ckpt = os.path.join(trainer.dir, "ckpt", sorted(os.listdir(
+        os.path.join(trainer.dir, "ckpt")))[-1])
+    saved, camera = checkpoint_scene(ckpt)
+    outs = ("rgb", "depth_map", "acc", "center")
+    traj_args = (len(trainer._traj["last_rgb"]), 0.5, 2.0)
+
+    def draw():
+        out = render_scene(saved, camera, trainer.bg, W, H, outs, rc)
+        return {**out, "traj": trainer.traj_image(*traj_args)}
+
+    got = draw()
+    with plain_versions():
+        want = draw()
+    errs = {}
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], atol=5e-4, rtol=1e-3)
+        errs[k] = float((got[k] - want[k]).abs().max())
+    assert float(got["traj"].max()) > 0.1, "the trajectory overlay is empty"
+    shell = GFlowTrainer(trainer.gt_image, num_points=N_POINTS, make_logs=False,
+                         render_config=rc)
+    shell.load_checkpoint(ckpt)
+    views = shell.render_views(outs)
+    for k in outs:
+        torch.testing.assert_close(views[k], got[k], atol=5e-4, rtol=1e-3)
+    log(f"# fit_video final checkpoint ({saved.n_alive} points, "
+        f"{len(trainer._traj['xyz'])} trajectory entries) through kernels vs plain versions "
+        f"(atol 5e-4, rtol 1e-3), max abs err: {json.dumps(errs)}; the checkpoint loaded "
+        f"into a trainer renders the same")
+    rebin = rebin_check(scene)
+    return {"launches": launches, "telemetry": summary, "psnr": psnr, "seg_fill": fill,
+            "render_err": errs, "rebin": rebin, "shapes": dict(shapes)}
+
+
+def checkpoint_scene(path):
+    """A saved checkpoint (its raw live rows, intrinsics and pose) as a
+    core.scene.GaussianScene and a core.camera.Camera on the card."""
+    from gflow_tpu_torch.core.camera import Camera
+    from gflow_tpu_torch.core.scene import GaussianScene
+
+    z = np.load(path)
+    t = lambda k: torch.from_numpy(z[k]).cuda()
+    scene = GaussianScene(t("xyz"), t("scale"), t("rotate"), t("opacity"), t("rgb"),
+                          n_alive=int(z["xyz"].shape[0]))
+    camera = Camera(intr=t("intr"), pose=torch.zeros(7, device="cuda")).with_extr(z["extr"])
+    return scene, camera
+
+
+def rebin_check(scene, iters=20):
+    """A full stage with rebin_every=4 through the kernels and through the
+    plain versions, deterministic: the loss traces agree to rtol 1e-2 (see
+    _main_path). No densify there: an occ densify at iteration 0 takes the
+    two traces to ~1e-2 apart by iteration 20 with or without rebinning
+    (scripts/torch_stage_spread.py). The lists rebuilt right after a
+    densify are held instead against the kernels' own per-iteration
+    binning: with an occ densify after iteration 0, rebin_every=4's
+    iterations 0 and 1 run on the lists that rebin_every=1 bins in its own
+    forward (the same parameters, the same generator), so the two losses
+    agree there to rtol 1e-5; lists left from before the densify would miss
+    the new points in iteration 1."""
+    from gflow_tpu_torch.opt.state import init_frame_state
+    from gflow_tpu_torch.opt.train import StageConfig, train_stage
+
+    img, depth, intr, params, n0, rcfg = scene
+    tg = check_targets(img, depth)
+    _, dyn_full = dynamics()
+    cfg = StageConfig(W=W, H=H, iterations=iters, render=rcfg, rebin_every=4)
+    traces = []
+    for plain in (False, True):
+        state = init_frame_state(CAPACITY)._replace(
+            n_alive=torch.tensor(n0, dtype=torch.int32, device="cuda"))
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        with deterministic(), (plain_versions() if plain else contextlib.nullcontext()):
+            _, _, info = train_stage(params, state, tg, intr, gen, cfg, dyn_full)
+        traces.append(info["loss_trace"].cpu())
+    torch.testing.assert_close(traces[0], traces[1], rtol=1e-2, atol=1e-5)
+    rel = float(((traces[0] - traces[1]).abs() / traces[1].abs()).max())
+    log(f"# rebin_every=4 full stage ({iters} iterations) matches plain path (rtol 1e-2; "
+        f"max rel diff {rel:.3e}): {traces[0][0]:.5f}->{traces[0][-1]:.5f}")
+    post = []
+    for every in (4, 1):
+        state = init_frame_state(CAPACITY)._replace(
+            n_alive=torch.tensor(n0, dtype=torch.int32, device="cuda"))
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        cfg = StageConfig(W=W, H=H, iterations=4, render=rcfg, rebin_every=every,
+                          densify_occ=True, max_densify=256)
+        with deterministic():
+            _, _, info = train_stage(params, state, tg, intr, gen, cfg, dyn_full)
+        post.append((int(info["n_alive"]), info["loss_trace"][:2].cpu()))
+    (n_rebin, l_rebin), (n_every, l_every) = post
+    assert n_rebin == n_every == n0 + 256, (n_rebin, n_every)
+    torch.testing.assert_close(l_rebin, l_every, rtol=1e-5, atol=0)
+    post_rel = float(((l_rebin - l_every).abs() / l_every.abs()).max())
+    log(f"# rebin_every=4 after an occ densify (+256 points): iterations 0-1 match "
+        f"per-iteration binning (rtol 1e-5; max rel diff {post_rel:.3e})")
+    return {"max_rel": rel, "post_densify_max_rel": post_rel}
+
+
 def device_rows(prof):
     """(device us, count, name) of every device kernel in a torch.profiler
     run: device rows only, since an operator's row repeats its kernels'
@@ -809,10 +1138,9 @@ def profile_iterations(scene, iters=20):
     device time. Device busy time is the sum of the device kernels' times;
     the profiler slows the host, so the idle share is taken against the
     unprofiled run of the same stage."""
-    from torch.profiler import ProfilerActivity, profile
-
     from gflow_tpu_torch.opt.state import init_frame_state
     from gflow_tpu_torch.opt.train import StageConfig, train_stage
+    from gflow_tpu_torch.utils.profiling import trace
 
     img, depth, intr, params, n0, rcfg = scene
     tg = targets(img, depth)
@@ -827,7 +1155,8 @@ def profile_iterations(scene, iters=20):
     train_stage(params, state, tg, intr, gen, cfg, dyn_full)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    trace_dir = os.path.join(FIT_DIR, "profile")
+    with trace(trace_dir) as prof:
         t0 = time.perf_counter()
         train_stage(params, state, tg, intr, gen, cfg, dyn_full)
         torch.cuda.synchronize()
@@ -841,7 +1170,8 @@ def profile_iterations(scene, iters=20):
                "wall_ms_per_iter": wall,
                "device_busy_ms_per_iter": busy if rows else "not measured",
                "device_idle_share": 1.0 - busy / wall if rows else "not measured",
-               "device_kernels_per_iter": sum(r[1] for r in rows) / iters, "top": top}
+               "device_kernels_per_iter": sum(r[1] for r in rows) / iters, "top": top,
+               "chrome_trace": os.path.relpath(os.path.join(trace_dir, "trace.json"))}
     log(f"# profile (full stage, final forward included): {json.dumps(summary)}")
     return summary
 
@@ -852,12 +1182,13 @@ def main():
         sys.exit(1)
     from gflow_tpu_torch.ops import _build
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    global SMI
+    smi = SMI = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                "--format=csv,noheader"], capture_output=True, text=True,
+                               check=True).stdout.strip().splitlines()[0]
     log(smi)
     log(f"# python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     _build.build_all()
     log(f"# nvcc build of {sorted({s for s, _, _ in _build.KERNELS.values()})}: "
         f"{time.perf_counter() - t0:.1f} s")
@@ -867,6 +1198,7 @@ def main():
     inputs = main_path_inputs(scene)
     rows = kernel_phase(inputs)
     launches = main_path(scene)
+    fit = fit_video_phase(scene)
     frame = time_frame(scene)
     log(f"# canonical frame (150 camera + 300 full iterations), {smi}: "
         f"camera {frame['cam_ms_per_iter']:.3f} ms/iter, full {frame['full_ms_per_iter']:.3f} "
@@ -883,7 +1215,8 @@ def main():
         r = rows[(name, 96, "synthetic")]
         row = {"name": name, "route": "cuda", "source": f"gflow_tpu_torch/csrc/{src}",
                "replaces": replaces[name],
-               "launches": launches[name], "max_abs_err": r["max_abs_err"],
+               "launches": launches[name], "fit_video_launches": fit["launches"][name],
+               "max_abs_err": r["max_abs_err"],
                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
         if "max_norm_err" in r:  # K3: also the error normalized by max |ref| per column
@@ -902,6 +1235,7 @@ def main():
         if "two-class" in other:
             row["two_class_input"] = other["two-class"]
         kernels.append(row)
+    log(f"# chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

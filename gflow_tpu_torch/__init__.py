@@ -1,7 +1,9 @@
-"""PyTorch/CUDA port of gflow-tpu's per-frame 4D Gaussian fit.
+"""PyTorch/CUDA port of gflow-tpu: the 4D Gaussian fit of a video
+(``pipeline.fit_video``) and the per-frame stages under it.
 
 Mirrors the layout of ``gflow_tpu`` (``core/``, ``ops/``, ``opt/``,
-``viz/``) so each module's counterpart is easy to find. The compositor
+``pipeline/``, ``utils/``, ``viz/``, ``cli/``) so each module's
+counterpart is easy to find. The compositor
 forward/backward and the tile-list packer run as hand-written CUDA kernels
 (``csrc/``) on CUDA tensors; CPU tensors take each kernel's plain PyTorch
 version. Entry points run on ``cuda`` unless the caller passes

@@ -17,10 +17,27 @@ Conventions
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
 from .. import resolve_device
+
+
+class Camera(NamedTuple):
+    """Camera parameters: intrinsics and world->camera pose."""
+
+    intr: torch.Tensor  # (4,) [fx, fy, cx, cy]
+    pose: torch.Tensor  # (7,) [qx, qy, qz, qw, tx, ty, tz]
+
+    @property
+    def extr(self) -> torch.Tensor:
+        return pose_to_extr(self.pose)
+
+    def with_extr(self, extr) -> "Camera":
+        """The camera with the pose of a (3, 4) world->camera matrix."""
+        extr = torch.as_tensor(extr, dtype=torch.float32, device=self.pose.device)
+        return self._replace(pose=torch.cat([rotmat_to_quat_xyzw(extr[:3, :3]), extr[:3, 3]]))
 
 
 def default_intrinsics(W: int, H: int, device=None) -> torch.Tensor:

@@ -4,9 +4,11 @@ Counterpart of ``gflow_tpu/ops/render.py``: rgb, uv, depth, depth_map,
 depth_map_color, acc and center. All feature maps that share the standard
 conic/opacity are composited in ONE pass over concatenated feature
 channels; the "center" view (identity conic, opacity 1) reuses the same
-tile lists. Images are channels-last (H, W, C). The device of the inputs
-picks the compositor: the CUDA kernels for CUDA tensors, the plain PyTorch
-versions for CPU tensors.
+tile lists; ``render_traj`` draws a trajectory line set with a scaled
+identity conic. Images are channels-last (H, W, C). The device of the
+inputs picks the compositor: the CUDA kernels for CUDA tensors, the plain
+PyTorch versions for CPU tensors. Host callers (the trainer) call these
+under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -152,6 +154,42 @@ def render(xyz, scale, rotate, opacity, rgb, intr, extr, bg, W: int, H: int,
             if name in out:
                 out[name] = (out[name].clamp(0.0, 1.0) * 255).to(torch.uint8)
     return out
+
+
+def render_scene(scene, camera, bg, W: int, H: int, outputs,
+                 config: RenderConfig = DEFAULT_CONFIG, device=None):
+    """Render a core.scene.GaussianScene through a core.camera.Camera
+    (activations applied here)."""
+    xyz, scale, rotate, opacity, rgb = scene.activated()
+    return render(xyz, scale, rotate, opacity, rgb, camera.intr, camera.extr, bg, W, H,
+                  outputs, config, device=device)
+
+
+def render_traj(xyz, scale, rotate, opacity, rgb, intr, extr, bg, W: int, H: int,
+                point_num: int, line_scale: float = 1.0, point_scale: float = 2.0,
+                config: RenderConfig = DEFAULT_CONFIG, n_actual: int | None = None,
+                device=None):
+    """Trajectory line-set render: the conic is a scaled identity, point_scale
+    for the first n - point_num entries and line_scale for the rest (the
+    original GFlow's gflow/utils/render.py:110-156 scales the first
+    len - point_num entries by point_scale; mirrored exactly). n_actual is
+    the logical count when the arrays are padded to a fixed capacity
+    (padding slots carry opacity 0). Returns the (H, W, 3) image."""
+    dev = resolve_device(device)
+    xyz, scale, rotate, opacity, rgb, intr, extr = (
+        torch.as_tensor(x, dtype=torch.float32).to(dev)
+        for x in (xyz, scale, rotate, opacity, rgb, intr, extr))
+    proj = project_gaussians(xyz, scale, rotate, intr, extr, W, H)
+    n_tx, n_ty = tile_grid(W, H)
+    bins = bin_with(config, proj["uv"], proj["depth"], proj["radius"], W, H)
+    n = xyz.shape[0]
+    cutoff = (n if n_actual is None else int(n_actual)) - point_num
+    scale_per_pt = torch.where(torch.arange(n, device=dev) < cutoff, point_scale,
+                               line_scale)[:, None]
+    conic = torch.tensor([1.0, 0.0, 1.0], device=dev) * scale_per_pt
+    return cuda_raster.composite_tiles_kernel(
+        bins.tile_lists, proj["uv"], conic, opacity, rgb, bg, W, H, n_tx, n_ty,
+        tile_counts=bins.tile_counts)
 
 
 def render2img(rendered: torch.Tensor) -> np.ndarray:

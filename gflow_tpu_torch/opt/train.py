@@ -1,12 +1,25 @@
 """One optimization stage of the per-frame fit (SimpleGaussian.train(),
 gflow/trainer.py:332-711).
 
-Counterpart of ``gflow_tpu/opt/train.py`` on its lean path: a Python loop
-of render -> loss -> backward -> gated Adam, with densify between loop
-segments at the static schedule, then one no-grad forward for the stage's
-output render. Each iteration composites one fused rgb+depth feature pass;
-the camera-only stage adds the moving-Gaussian coverage as a second output
-of the same compositor pass (kernel K2 on CUDA).
+Counterpart of ``gflow_tpu/opt/train.py``: a Python loop of render ->
+loss -> backward -> gated Adam. Each iteration composites one fused
+rgb+depth feature pass; the camera-only stage adds the moving-Gaussian
+coverage as a second output of the same compositor pass (kernel K2 on
+CUDA). Three variants, as in the JAX package:
+
+- the lean path (``snapshot_every == 0``): densify after the iteration
+  that the static schedule names, the error map from one extra forward at
+  the updated parameters; then one no-grad forward for the stage's output
+  render;
+- amortized rebinning (``rebin_every > 1``, lean path only): the tile
+  lists come from detached geometry every ``rebin_every`` iterations and
+  after every densify; gradients flow through the gathered values only;
+- the snapshot path (``snapshot_every > 0``): densify inside the loop from
+  that iteration's own error map (taken before the Adam update, applied to
+  the updated parameters); every ``snapshot_every`` iterations a uint8
+  snapshot of the last forward's rgb and turbo depth and of the updated
+  parameters' center view; no final forward, so the stage's outputs come
+  from the last in-loop forward.
 """
 from __future__ import annotations
 
@@ -22,7 +35,8 @@ from ..core.scene import OPACITY_SENSITIVITY
 from ..ops import cuda_raster
 from ..ops.binning import tile_grid
 from ..ops.projection import TILE, project_gaussians, supported_max_radius
-from ..ops.render import DEFAULT_CONFIG, RenderConfig, bin_with
+from ..ops.render import DEFAULT_CONFIG, RenderConfig, bin_with, render
+from ..viz.colormap import apply_float_colormap
 from .densify import densify_by_pixels, reset_opt_after_densify
 from .losses import LossWeights, compute_losses, flow_prior_terms
 from .state import FrameState, Params, Targets, adam_update, init_opt_state
@@ -41,11 +55,9 @@ class StageConfig:
     max_densify: int = 8192
     bg: float = 0.0
     render: RenderConfig = field(default_factory=lambda: DEFAULT_CONFIG)
-    # not ported yet: the JAX package's snapshot collection and amortized
-    # rebinning; train_stage raises NotImplementedError on them
-    snapshot_every: int = 0
+    snapshot_every: int = 0          # >0: the snapshot path (module docstring)
     telemetry_t_final: bool = False  # residual-transmittance stats on the final forward
-    rebin_every: int = 1
+    rebin_every: int = 1             # >1: amortized rebinning (module docstring)
 
 
 class StageDynamics(NamedTuple):
@@ -68,10 +80,23 @@ def _activate(params: Params, n_alive):
     return scale, rotate, opacity, rgb
 
 
+@torch.no_grad()
+def _compute_bins(params: Params, n_alive, intr, cfg: StageConfig):
+    """Tile binning from the current geometry alone (the lists are integer
+    data: no gradient path either way); the rebin_every > 1 loop carries
+    them between refreshes."""
+    scale, rotate, _, _ = _activate(params, n_alive)
+    proj = project_gaussians(
+        params.xyz, scale, rotate, intr, pose_to_extr(params.pose), cfg.W, cfg.H,
+        max_radius=supported_max_radius(cfg.render.max_tiles_per_gaussian))
+    return bin_with(cfg.render, proj["uv"], proj["depth"], proj["radius"], cfg.W, cfg.H)
+
+
 def _forward(params: Params, n_alive, state: FrameState, targets: Targets, intr,
              weights: LossWeights, cfg: StageConfig, flow_prior=None,
-             diag_t_final: bool = False):
-    """Render + losses. Returns (total, aux).
+             diag_t_final: bool = False, bins=None):
+    """Render + losses. Returns (total, aux). bins: tile lists carried by
+    the rebinning loop; None bins this forward's own projection.
 
     diag_t_final: append a ones feature channel whose composited value is
     the per-pixel accumulated opacity sum(alpha_i * T_i); the residual
@@ -88,7 +113,8 @@ def _forward(params: Params, n_alive, state: FrameState, targets: Targets, intr,
         max_radius=supported_max_radius(cfg.render.max_tiles_per_gaussian))
     uv, depth, conic, radius = proj["uv"], proj["depth"], proj["conic"], proj["radius"]
     n_tx, n_ty = tile_grid(cfg.W, cfg.H)
-    bins = bin_with(cfg.render, uv, depth, radius, cfg.W, cfg.H)
+    if bins is None:
+        bins = bin_with(cfg.render, uv, depth, radius, cfg.W, cfg.H)
 
     feat_list = [rgb, depth]  # fused rgb + depth pass
     if diag_t_final:
@@ -214,16 +240,26 @@ def _to(tup, dev):
     return type(tup)(*(x.to(dev) for x in tup))
 
 
+def _snapshot(aux, params: Params, n_alive, intr, cfg: StageConfig, dev):
+    """uint8 rgb and turbo depth of the last forward, and the center view
+    (identity conic, opacity 1) of the updated parameters."""
+    scale, rotate, opacity, rgb = _activate(params, n_alive)
+    center = render(params.xyz, scale, rotate, opacity, rgb, intr, pose_to_extr(params.pose),
+                    cfg.bg, cfg.W, cfg.H, ("center",), cfg.render, device=dev)["center"]
+    u8 = lambda x: (x.clamp(0.0, 1.0) * 255).to(torch.uint8)
+    return {"rgb": u8(aux["rgb"]),
+            "depth_map": u8(apply_float_colormap(aux["depth_map"], "turbo", non_zero=True)),
+            "center": u8(center)}
+
+
 def train_stage(params: Params, state: FrameState, targets: Targets, intr,
                 gen: torch.Generator, cfg: StageConfig, dyn: StageDynamics,
                 device=None):
     """Run one optimization stage on `device` (``cuda`` unless the caller
     passes another). `gen` draws the densify uniforms. Returns (params,
-    state, info); info["loss_trace"] holds every iteration's total loss."""
-    if cfg.rebin_every > 1:
-        raise NotImplementedError("rebin_every > 1 is not ported yet")
-    if cfg.snapshot_every > 0:
-        raise NotImplementedError("snapshot_every > 0 is not ported yet")
+    state, info); info["loss_trace"] holds every iteration's total loss and,
+    on the snapshot path, info["snapshots"] the uint8 stacks (n_chunks, H,
+    W, 3) under "rgb", "depth_map" and "center"."""
     dev = resolve_device(device)
     params, state, targets = _to(params, dev), _to(state, dev), _to(targets, dev)
     intr = torch.as_tensor(intr, dtype=torch.float32).to(dev)
@@ -233,15 +269,15 @@ def train_stage(params: Params, state: FrameState, targets: Targets, intr,
     n_alive = state.n_alive
     flow_prior = flow_prior_terms(state, targets, cfg.camera_only, cfg.W, cfg.H)
 
-    def forward(p, n, diag_t_final=False):
+    def forward(p, n, diag_t_final=False, bins=None):
         return _forward(p, n, state, targets, intr, dyn.weights, cfg,
-                        flow_prior=flow_prior, diag_t_final=diag_t_final)
+                        flow_prior=flow_prior, diag_t_final=diag_t_final, bins=bins)
 
-    def step(i, params, opt_state, n_alive):
+    def step(i, params, opt_state, n_alive, bins=None):
         """Forward + gated grads + Adam. LinearLR 1.0 -> 0.1 over the stage
         (trainer.py:384), frozen at constant attribute lr after densify."""
         leaves = [p.detach().requires_grad_() for p in params]
-        total, aux = forward(Params(*leaves), n_alive)
+        total, aux = forward(Params(*leaves), n_alive, bins=bins)
         grads = torch.autograd.grad(total, leaves, allow_unused=True)
         grads = Params(*(torch.zeros_like(x) if g is None else g
                          for g, x in zip(grads, leaves)))
@@ -257,13 +293,19 @@ def train_stage(params: Params, state: FrameState, targets: Targets, intr,
                    float(np.float32(lr * factor)))
         params, opt_state = adam_update(Params(*(x.detach() for x in leaves)), grads,
                                         opt_state, *lrs)
-        return params, opt_state, total.detach(), aux["metrics"]
+        aux = {k: ({m: x.detach() for m, x in v.items()} if k == "metrics" else v.detach())
+               for k, v in aux.items()}
+        return params, opt_state, total.detach(), aux
 
-    def apply_densify(params, opt_state, n_alive, kind):
+    def apply_densify(params, opt_state, n_alive, kind, emap=None):
+        """kind "occ": uniform map over the occ mask; "err": the rgb error
+        above threshold, from `emap` or, without one, from one extra forward
+        at the current parameters."""
         u = torch.rand(cfg.max_densify, generator=gen, device=gen.device).to(dev)
         if kind == "err":
-            with torch.no_grad():
-                emap = forward(params, n_alive)[1]["loss_rgb_pixel"]
+            if emap is None:
+                with torch.no_grad():
+                    emap = forward(params, n_alive)[1]["loss_rgb_pixel"]
             mask = emap > dyn.densify_err_thre
             percent = dyn.densify_err_percent
         else:
@@ -275,25 +317,54 @@ def train_stage(params: Params, state: FrameState, targets: Targets, intr,
             pose_to_extr(params.pose), dyn.num_points, percent, u)
         return params, reset_opt_after_densify(opt_state, params), n_alive
 
-    losses, metrics = [], None
+    losses, aux, snaps = [], None, []
     events = {e: kind for kind, e in _densify_events(cfg)}
-    for i in range(cfg.iterations):
-        params, opt_state, loss, metrics = step(i, params, opt_state, n_alive)
-        losses.append(loss)
-        if i in events:
-            params, opt_state, n_alive = apply_densify(params, opt_state, n_alive,
-                                                       events[i])
+    if cfg.snapshot_every > 0:
+        for i in range(cfg.iterations):
+            params, opt_state, loss, aux = step(i, params, opt_state, n_alive)
+            losses.append(loss)
+            if i in events:  # from this iteration's own error map
+                params, opt_state, n_alive = apply_densify(
+                    params, opt_state, n_alive, events[i], emap=aux["loss_rgb_pixel"])
+            if (i + 1) % cfg.snapshot_every == 0 or i + 1 == cfg.iterations:
+                with torch.no_grad():
+                    snaps.append(_snapshot(aux, params, n_alive, intr, cfg, dev))
+        if aux is None:  # no iteration ran: zero outputs, as the JAX package
+            C = params.capacity
+            aux = {"uv": torch.zeros((C, 2), device=dev),
+                   "depth": torch.zeros((C, 1), device=dev),
+                   "rgb": torch.zeros((cfg.H, cfg.W, 3), device=dev),
+                   "depth_map": torch.zeros((cfg.H, cfg.W, 1), device=dev),
+                   "tile_overflow": torch.zeros((), device=dev),
+                   "metrics": {k: torch.zeros((), device=dev) for k in
+                               ("rgb", "depth", "var", "scale", "still", "flow", "total")}}
+        metrics = aux["metrics"]
+    else:
+        rebin = cfg.rebin_every > 1
+        bins, metrics = None, None
+        for i in range(cfg.iterations):
+            if rebin and i % cfg.rebin_every == 0:
+                bins = _compute_bins(params, n_alive, intr, cfg)
+            params, opt_state, loss, step_aux = step(i, params, opt_state, n_alive, bins)
+            losses.append(loss)
+            metrics = step_aux["metrics"]
+            if i in events:
+                params, opt_state, n_alive = apply_densify(params, opt_state, n_alive,
+                                                           events[i])
+                if rebin:  # new points enter the lists at once
+                    bins = _compute_bins(params, n_alive, intr, cfg)
+        # one final forward (no grad) for the stage's output render + uv
+        with torch.no_grad():
+            _, aux = forward(params, n_alive, diag_t_final=cfg.telemetry_t_final)
+        metrics = metrics if metrics is not None else aux["metrics"]
 
-    # one final forward (no grad) for the stage's output render + uv
-    with torch.no_grad():
-        _, aux = forward(params, n_alive, diag_t_final=cfg.telemetry_t_final)
     if not cfg.camera_only:
         state = finalize_stage(aux["uv"], aux["depth"], params, state,
                                targets.move_mask, n_alive, cfg.W, cfg.H)
     else:
         state = state._replace(n_alive=n_alive)
     info = {
-        "metrics": metrics if metrics is not None else aux["metrics"],
+        "metrics": metrics,
         "loss_trace": torch.stack(losses) if losses else torch.zeros(0, device=dev),
         "n_alive": n_alive,
         **{k: aux[k] for k in ("rgb", "depth_map", "uv", "depth", "tile_overflow")},
@@ -301,4 +372,8 @@ def train_stage(params: Params, state: FrameState, targets: Targets, intr,
     for k in ("t_final_overflow_mean", "t_final_overflow_max"):
         if k in aux:
             info[k] = aux[k]
+    if cfg.snapshot_every > 0:
+        info["snapshots"] = {k: torch.stack([sn[k] for sn in snaps]) if snaps else
+                             torch.zeros((0, cfg.H, cfg.W, 3), dtype=torch.uint8, device=dev)
+                             for k in ("rgb", "depth_map", "center")}
     return params, state, info

@@ -259,3 +259,101 @@ def test_backward_takes_a_misaligned_gradient(dev):
     torch.testing.assert_close(cuda_raster.composite_bwd(attrs, counts, bg, g, 4),
                                cuda_raster.composite_bwd(attrs, counts, bg, g.clone(), 4),
                                rtol=0, atol=0)
+
+
+def _traj_scene(dev, n_actual=300, cap=512, W=96, H=64, seed=3):
+    rng = np.random.default_rng(seed)
+    xyz = np.zeros((cap, 3), np.float32)
+    xyz[:, 2] = -1.0
+    z = rng.uniform(2.0, 4.0, n_actual)
+    xyz[:n_actual] = np.c_[rng.uniform(-0.6, 0.6, (n_actual, 2)) * z[:, None], z]
+    op = np.zeros((cap, 1), np.float32)
+    op[:n_actual] = 0.99 * 0.8 ** rng.integers(0, 4, (n_actual, 1))
+    rgb = rng.uniform(0.05, 0.95, (cap, 3)).astype(np.float32)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    return (t(xyz), t(np.full((cap, 3), 1e-6)), t(np.tile([1.0, 0, 0, 0], (cap, 1))), t(op),
+            t(rgb), t([W / 2.0, W / 2.0, W / 2, H / 2]), torch.eye(3, 4, device=dev))
+
+
+def test_render_traj_kernels_match_plain(dev, monkeypatch):
+    """render_traj (F = 3) at K = 128, M = 8, as the trainer's line set is
+    drawn, through K1/K4 and through the plain versions."""
+    from gflow_tpu_torch.ops.render import RenderConfig, render_traj
+
+    args = _traj_scene(dev)
+    cfg = RenderConfig(max_per_tile=128, max_tiles_per_gaussian=8)
+    _build.LAUNCHES.clear()
+    got = render_traj(*args, 0.0, 96, 64, 16, 0.5, 2.0, cfg, n_actual=300)
+    assert _build.LAUNCHES["composite_fwd"] == 1 and _build.LAUNCHES["bin_tail"] == 1
+    monkeypatch.setattr(cuda_raster, "packed_composite", composite.composite_packed)
+    monkeypatch.setattr(binning, "bin_tail", binning.bin_tail_plain)
+    want = render_traj(*args, 0.0, 96, 64, 16, 0.5, 2.0, cfg, n_actual=300)
+    assert float(want.max()) > 0.1
+    torch.testing.assert_close(got, want, atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("outputs,F", [(("rgb", "center", "depth_map_color"), 6),
+                                       (("rgb", "depth_map", "acc"), 5)])
+def test_forward_kernel_on_diagnostic_render_input(dev, monkeypatch, outputs, F):
+    """K1 at K = 192 on the packed input of the trainer's diagnostic render
+    (F = 6 and the center view's F = 3) and of the final forward's F = 5
+    (rgb, depth, the t_final ones channel)."""
+    from gflow_tpu_torch.ops.render import RenderConfig, render
+
+    rng = np.random.default_rng(11)
+    n, Wd, Hd = 2000, 160, 96
+    z = rng.uniform(2, 5, n)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    arrays = (t(np.c_[rng.uniform(-0.8, 0.8, (n, 2)) * z[:, None], z]),
+              t(rng.uniform(0.02, 0.1, (n, 3))), t(rng.normal(size=(n, 4))),
+              t(rng.uniform(0.3, 0.95, (n, 1))), t(rng.uniform(0, 1, (n, 3))),
+              t([80.0, 80.0, Wd / 2, Hd / 2]), torch.eye(3, 4, device=dev))
+    calls, packed = [], cuda_raster.packed_composite
+
+    def record(g_attrs, counts, bg, n_tx, with_cov=False):
+        calls.append((g_attrs.detach().clone(), counts.clone(), bg.clone(), n_tx))
+        return packed(g_attrs, counts, bg, n_tx, with_cov)
+
+    monkeypatch.setattr(cuda_raster, "packed_composite", record)
+    render(*arrays, 0.1, Wd, Hd, outputs, RenderConfig(max_per_tile=192,
+                                                       max_tiles_per_gaussian=16))
+    widths = sorted(c[0].shape[2] - 6 for c in calls)
+    assert F in widths and all(c[0].shape[1] == 192 for c in calls), widths
+    for g_attrs, counts, bg, n_tx in calls:
+        assert int(counts.max()) > 0
+        got = cuda_raster.composite_fwd(g_attrs, counts, bg, n_tx)
+        want = composite.composite_packed(g_attrs, counts, bg, n_tx)
+        torch.testing.assert_close(got, want, atol=5e-4, rtol=1e-3)
+
+
+def test_trainer_stage_with_rebin_matches_plain(dev, monkeypatch):
+    """One GFlowTrainer full stage with rebin_every=2 on the card, through
+    the kernels and through the plain versions (deterministic algorithms):
+    the loss traces agree to rtol 1e-2, as chip_smoke.py holds them."""
+    from gflow_tpu_torch.pipeline.trainer import GFlowTrainer
+
+    rng = np.random.default_rng(12)
+    Hd, Wd = 64, 96
+    yy, xx = np.meshgrid(np.linspace(0, 1, Hd), np.linspace(0, 1, Wd), indexing="ij")
+    img = np.clip(np.stack([xx, yy, (xx + yy) / 2], -1) + rng.normal(0, 0.05, (Hd, Wd, 3)),
+                  0.02, 0.98).astype(np.float32)
+    depth = (1.5 + xx + rng.uniform(0, 1e-3, (Hd, Wd))).astype(np.float32)
+    traces = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for plain in (False, True):
+            if plain:
+                monkeypatch.setattr(cuda_raster, "packed_composite", composite.composite_packed)
+                monkeypatch.setattr(binning, "bin_tail", binning.bin_tail_plain)
+            tr = GFlowTrainer(img, depth, num_points=800, make_logs=False, rebin_every=2)
+            tr.init_gaussians_from_image()
+            _build.LAUNCHES.clear()
+            tr.train(iterations=12, lr=1e-2, lambda_depth=0.1, lambda_var=50.0)
+            if not plain:
+                # a binning every 2nd iteration, the final forward's, and one
+                # per diagnostic render (full, still and move views)
+                assert _build.LAUNCHES["bin_tail"] == 6 + 1 + 3
+            traces.append(tr._last_info["loss_trace"].cpu())
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.testing.assert_close(traces[0], traces[1], rtol=1e-2, atol=1e-5)

@@ -41,5 +41,8 @@ def test_port_has_the_slice_modules():
                 "ops/projection.py", "ops/binning.py", "ops/composite.py",
                 "ops/cuda_raster.py", "ops/_build.py", "ops/render.py", "viz/colormap.py",
                 "opt/state.py", "opt/losses.py", "opt/densify.py", "opt/initialize.py",
-                "opt/train.py", "convert.py"):
+                "opt/train.py", "convert.py", "core/io.py", "utils/hull.py",
+                "utils/tracking.py", "utils/cli.py", "utils/bgwriter.py", "utils/profiling.py",
+                "viz/video.py", "viz/mjpeg_avi.py", "viz/traj_visualizer.py",
+                "pipeline/trainer.py", "pipeline/fit_video.py", "cli/fit_video.py"):
         assert f"gflow_tpu_torch/{mod}" in names, mod

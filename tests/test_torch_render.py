@@ -1,7 +1,8 @@
 """Port parity: multi-output render (gflow_tpu_torch.ops.render vs
 gflow_tpu.ops.render.render), on the CPU: background fill, the center
-view's opacity mask, every output at once, an odd frame size, and the
-scene-adaptive RenderConfig.
+view's opacity mask, every output at once, an odd frame size, the
+scene-adaptive RenderConfig, render_traj (with capacity padding and
+n_actual) and render_scene through GaussianScene and Camera.
 
 Tolerances: images atol 1e-4 (same sums in another order); the turbo
 depth colormap is a 256-bin lookup, so a depth at a bin edge may land one
@@ -132,6 +133,70 @@ def test_for_scene_matches_jax(W, H, n, textured):
         assert getattr(tc, f) == getattr(jc, f), f
 
 
+def traj_line_set(n_actual, cap, seed=7, W=64, H=48):
+    """A trajectory line set as the trainer pads it: n_actual points at
+    opacity 0.99 * alpha^k, then padding behind the camera at opacity 0."""
+    rng = np.random.default_rng(seed)
+    xyz = np.zeros((cap, 3), np.float32)
+    xyz[:, 2] = -1.0
+    z = rng.uniform(2.0, 4.0, n_actual)
+    xyz[:n_actual] = np.c_[rng.uniform(-0.6, 0.6, (n_actual, 2)) * z[:, None], z]
+    op = np.zeros((cap, 1), np.float32)
+    op[:n_actual] = 0.99 * 0.8 ** rng.integers(0, 4, (n_actual, 1))
+    rgb = np.zeros((cap, 3), np.float32)
+    rgb[:n_actual] = rng.uniform(0.05, 0.95, (n_actual, 3))
+    scale = np.full((cap, 3), 1e-6, np.float32)
+    rot = np.tile(np.asarray([1.0, 0.0, 0.0, 0.0], np.float32), (cap, 1))
+    intr = np.array(jcam.default_intrinsics(W, H))
+    extr = np.c_[np.eye(3), [0.02, -0.01, 0.0]].astype(np.float32)
+    return xyz, scale, rot, op, rgb, intr, extr
+
+
+@pytest.mark.parametrize("n_actual,cap,point_num", [(300, 512, 16), (512, 512, 40),
+                                                    (90, 256, 90)])
+def test_render_traj_matches_jax(n_actual, cap, point_num):
+    from gflow_tpu.ops.render import render_traj as j_traj
+    from gflow_tpu_torch.ops.render import render_traj as t_traj
+
+    W, H = 64, 48
+    arrays = traj_line_set(n_actual, cap, W=W, H=H)
+    cfg = dict(max_per_tile=128, max_tiles_per_gaussian=8)
+    want = np.asarray(j_traj(*(jnp.asarray(a) for a in arrays), 0.0, W, H, point_num,
+                             0.5, 2.0, JConfig(**cfg), jnp.asarray(n_actual, jnp.int32)))
+    got = t_traj(*(torch.from_numpy(a) for a in arrays), 0.0, W, H, point_num, 0.5, 2.0,
+                 TConfig(**cfg), n_actual=n_actual, device="cpu").numpy()
+    assert got.shape == want.shape == (H, W, 3)
+    assert got.max() > 0.1  # the line set is visible
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-5)
+
+
+def test_render_scene_matches_jax():
+    """A saved scene's raw attributes (as a checkpoint holds them) and a
+    camera from an extrinsic matrix, rendered by both packages."""
+    from gflow_tpu.core.scene import scene_from_arrays as j_scene
+    from gflow_tpu.ops.render import render_scene as j_render_scene
+    from gflow_tpu_torch.core.camera import Camera
+    from gflow_tpu_torch.core.scene import GaussianScene
+    from gflow_tpu_torch.ops.render import render_scene as t_render_scene
+
+    W, H = 64, 48
+    xyz, scale, rotate, opacity, rgb, _, extr = scene(n=180, seed=9, W=W, H=H)
+    js = j_scene(256, *(jnp.asarray(a) for a in (xyz, scale, rotate, opacity[:, 0], rgb)))
+    ts = GaussianScene(*(torch.from_numpy(np.array(getattr(js, f))) for f in
+                         ("xyz", "scale", "rotate", "opacity", "rgb")), n_alive=180)
+    intr = np.array([50.0, 50.0, 30.5, 25.0], np.float32)
+    jcamera = jcam.Camera(jnp.asarray(intr), jnp.zeros(7)).with_extr(extr)
+    tcamera = Camera(torch.from_numpy(intr), torch.zeros(7)).with_extr(extr)
+    np.testing.assert_allclose(tcamera.extr.numpy(), np.asarray(jcamera.extr), atol=1e-6)
+    outs = ("rgb", "depth_map", "center")
+    cfg = dict(max_per_tile=64, max_tiles_per_gaussian=16)
+    oj = j_render_scene(js, jcamera, 0.2, W, H, outs, JConfig(**cfg))
+    ot = t_render_scene(ts, tcamera, 0.2, W, H, outs, TConfig(**cfg), device="cpu")
+    for k in outs:
+        np.testing.assert_allclose(ot[k].numpy(), np.asarray(oj[k]), atol=1e-4, rtol=1e-5,
+                                   err_msg=k)
+
+
 def _call_entry_point(name):
     from gflow_tpu_torch import convert
     from gflow_tpu_torch.opt import train
@@ -155,13 +220,22 @@ def _call_entry_point(name):
         init_frame_state(16)
     elif name == "default_intrinsics":
         default_intrinsics(64, 48)
+    elif name == "render_traj":
+        from gflow_tpu_torch.ops.render import render_traj
+
+        render_traj(*traj_line_set(8, 8), 0.0, 64, 48, 2)
+    elif name == "GFlowTrainer":
+        from gflow_tpu_torch.pipeline.trainer import GFlowTrainer
+
+        GFlowTrainer(np.zeros((48, 64, 3), np.float32), make_logs=False)
     else:  # the device is resolved before any argument is read
         train.train_stage(None, None, None, arrays[5], torch.Generator(),
                           train.StageConfig(W=64, H=48, iterations=1), train.StageDynamics())
 
 
 @pytest.mark.parametrize("entry", ["render", "init_params_from_image", "params_from_numpy",
-                                   "train_stage", "init_frame_state", "default_intrinsics"])
+                                   "train_stage", "init_frame_state", "default_intrinsics",
+                                   "render_traj", "GFlowTrainer"])
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, entry):
     """Entry points run on cuda by default and raise without a GPU rather
     than falling back to the CPU."""

@@ -1,8 +1,10 @@
 """PyTorch/CUDA port of gflow-tpu: the 4D Gaussian fit of a video
-(``pipeline.fit_video``) and the per-frame stages under it.
+(``pipeline.fit_video``) and the per-frame stages under it, the benchmark
+that scores a fit (``eval.benchmark``), the viewer (``viz.viewer``) and
+the TAP-Vid splitter (``pipeline.split_tapvid``).
 
 Mirrors the layout of ``gflow_tpu`` (``core/``, ``ops/``, ``opt/``,
-``pipeline/``, ``utils/``, ``viz/``, ``cli/``) so each module's
+``pipeline/``, ``eval/``, ``utils/``, ``viz/``, ``cli/``) so each module's
 counterpart is easy to find. The compositor
 forward/backward and the tile-list packer run as hand-written CUDA kernels
 (``csrc/``) on CUDA tensors; CPU tensors take each kernel's plain PyTorch

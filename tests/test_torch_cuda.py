@@ -357,3 +357,63 @@ def test_trainer_stage_with_rebin_matches_plain(dev, monkeypatch):
     finally:
         torch.use_deterministic_algorithms(False)
     torch.testing.assert_close(traces[0], traces[1], rtol=1e-2, atol=1e-5)
+
+
+def test_eval_render_two_class_matches_plain(dev, monkeypatch):
+    """The benchmark's tracking render (uv, depth, depth_map, acc: K1 at F
+    = 2, K = 128) after two-class binning (M = 48, small grid 8), as
+    RenderConfig.for_scene picks for wide grids, through K1/K4 and through
+    the plain versions."""
+    import collections
+
+    from gflow_tpu_torch.ops.render import RenderConfig, render
+
+    rng = np.random.default_rng(13)
+    n, Wd, Hd = 3000, 320, 192
+    z = rng.uniform(2, 5, n)
+    big = rng.uniform(size=(n, 1)) < 0.05  # a share outgrows the small grid
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    arrays = (t(np.c_[rng.uniform(-0.8, 0.8, (n, 2)) * z[:, None], z]),
+              t(rng.uniform(0.01, 0.04, (n, 3)) * np.where(big, 8.0, 1.0)),
+              t(rng.normal(size=(n, 4))), t(rng.uniform(0.3, 0.95, (n, 1))),
+              t(rng.uniform(0, 1, (n, 3))), t([240.0, 240.0, Wd / 2, Hd / 2]),
+              torch.eye(3, 4, device=dev))
+    cfg = RenderConfig(max_per_tile=128, max_tiles_per_gaussian=48, small_tiles_per_gaussian=8)
+    outputs = ("uv", "depth", "depth_map", "acc")
+    shapes, packed = collections.Counter(), cuda_raster.packed_composite
+
+    def tally(g_attrs, counts, bg, n_tx, with_cov=False):
+        shapes[tuple(g_attrs.shape[1:])] += 1
+        return packed(g_attrs, counts, bg, n_tx, with_cov)
+
+    monkeypatch.setattr(cuda_raster, "packed_composite", tally)
+    _build.LAUNCHES.clear()
+    got = render(*arrays, 0.0, Wd, Hd, outputs, cfg)
+    assert dict(_build.LAUNCHES) == {"bin_tail": 1, "composite_fwd": 1}
+    assert dict(shapes) == {(128, 8): 1}  # K = 128, CA = 6 + F, F = 2
+    monkeypatch.setattr(cuda_raster, "packed_composite", composite.composite_packed)
+    monkeypatch.setattr(binning, "bin_tail", binning.bin_tail_plain)
+    want = render(*arrays, 0.0, Wd, Hd, outputs, cfg)
+    assert float(want["acc"].max()) > 0.5
+    for k in outputs:
+        torch.testing.assert_close(got[k], want[k], atol=5e-4, rtol=1e-3)
+
+
+def test_lpips_on_the_card_matches_the_cpu(dev, monkeypatch):
+    """LPIPS(Alex) on the card, with cuDNN's TF32 allowed globally (the
+    library default), against the CPU: its convolutions run without TF32,
+    so the two agree to 1e-5 relative."""
+    from gflow_tpu_torch.eval import lpips_convert
+    from gflow_tpu_torch.eval.metrics import lpips
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    rng = np.random.default_rng(14)
+    sd = {k: rng.normal(0, 0.05, s).astype(np.float32)
+          for k, s in lpips_convert.expected_torch_keys().items()}
+    w = lpips_convert.convert(merged_sd={k: np.abs(v) if k.endswith(".bias") else v
+                                         for k, v in sd.items()})
+    a = rng.uniform(0, 1, (120, 200, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+    got, want = lpips(a, b, w, device=dev), lpips(a, b, w, device="cpu")
+    assert want > 0 and got == pytest.approx(want, rel=1e-5)
+    assert torch.backends.cudnn.allow_tf32  # the caller's flag is left as it was

@@ -44,5 +44,10 @@ def test_port_has_the_slice_modules():
                 "opt/train.py", "convert.py", "core/io.py", "utils/hull.py",
                 "utils/tracking.py", "utils/cli.py", "utils/bgwriter.py", "utils/profiling.py",
                 "viz/video.py", "viz/mjpeg_avi.py", "viz/traj_visualizer.py",
-                "pipeline/trainer.py", "pipeline/fit_video.py", "cli/fit_video.py"):
+                "pipeline/trainer.py", "pipeline/fit_video.py", "cli/fit_video.py",
+                "eval/metrics.py", "eval/lpips_convert.py", "eval/tapvid.py", "eval/davis.py",
+                "eval/camera_eval.py", "eval/benchmark.py", "eval/benchmark_multi.py",
+                "viz/viewer.py", "pipeline/split_tapvid.py", "cli/benchmark.py",
+                "cli/benchmark_multi.py", "cli/convert_lpips.py", "cli/split_tapvid.py",
+                "cli/viewer.py"):
         assert f"gflow_tpu_torch/{mod}" in names, mod

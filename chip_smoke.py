@@ -1381,6 +1381,346 @@ def viewer_phase(fit):
     return {"launches": launches, "packed": packed[0]}
 
 
+# ---------------------------------------------------------------------------
+# prior preparation: prep_flow, prep_moveseg, prep_depth
+# ---------------------------------------------------------------------------
+
+PREP_DIR = os.path.join(FIT_DIR, "prep")
+# seeded random weights, scaled as the JAX package's replica tests scale
+# their torch init (exp / expm1 overflow on unscaled random weights)
+GMFLOW_SCALE, MAST3R_SCALE = 0.5, 0.3
+MAST3R_SIZE = 288  # prep_depth's inference size: 854x480 runs at 512x288
+# a directed GMFlow pair at the released width, on the CPU in seconds:
+# /32 (padding_factor) and divisible by the splits at 1/8 (2) and 1/4 (8)
+HOLD_FLOW_HW = (192, 320)
+OCC_MARGIN = 1e-4   # |diff - bound| under which an occlusion test may flip
+MASK_FLIPS = 1e-3   # share of moving-mask pixels that may flip, card vs CPU
+# normalized epipolar error map, card vs CPU: the LMedS's refit takes the
+# null vector of A^T A summed over 410k float32 rows, which the two sides
+# sum in another order (5.3e-3 apart on an H100 80GB HBM3 at 700 W)
+MAP_ATOL = 1e-2
+
+
+@contextmanager
+def timed_calls(owner, name, seconds):
+    """Append the seconds of each call of owner.name (the card
+    synchronized) to `seconds` while the block runs."""
+    fn = getattr(owner, name)
+
+    def run(*args, **kw):
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return res
+
+    with mock.patch.object(owner, name, run):
+        yield seconds
+
+
+def prep_sequence():
+    """write_sequence's 4 frames (854x480 JPEG) with its priors removed:
+    the prep stages write them."""
+    import shutil
+
+    shutil.rmtree(PREP_DIR, ignore_errors=True)
+    seq = write_sequence(PREP_DIR)
+    for sfx in ("_depth_mast3r_s2", "_camera_mast3r_s2", "_flow_unimatch", "_epipolar"):
+        shutil.rmtree(str(seq) + sfx)
+    return str(seq)
+
+
+def meta_model(cls, cfg, sd, device):
+    """`cls(cfg)` holding `sd` on `device`, built without initializing."""
+    with torch.device("meta"):
+        model = cls(cfg)
+    model.load_state_dict(sd, strict=True, assign=True)
+    return model.to(device).eval()
+
+
+def hold_occlusion(fwd, bwd):
+    """forward_backward_consistency of the same flows on the card and on
+    the CPU: equal, but where a pixel's |diff - bound| < OCC_MARGIN (the
+    two sides may round it apart). Returns (differing pixels, the card's
+    backward occlusion map)."""
+    from gflow_tpu_torch.models.unimatch import forward_backward_consistency
+    from gflow_tpu_torch.models.unimatch.gmflow import consistency_terms
+
+    f, b = torch.from_numpy(fwd)[None], torch.from_numpy(bwd)[None]
+    card = forward_backward_consistency(f.cuda(), b.cuda())
+    cpu = forward_backward_consistency(f, b)
+    flips = 0
+    for (diff, bound), g, w in zip(consistency_terms(f, b), card, cpu):
+        differ = g.cpu() != w
+        assert bool(((diff - bound).abs() < OCC_MARGIN)[differ].all()), "occlusion differs"
+        flips += int(differ.sum())
+    return flips, card[1][0].cpu().numpy()
+
+
+def prep_flow_phase(seq):
+    """prep_flow.main through --checkpoint (a released-layout .pth of
+    seeded weights at the released width), timed per directed pair; the
+    outputs' schema; the occlusion on the card against the CPU; one
+    directed pair on the card against the CPU at HOLD_FLOW_HW."""
+    from gflow_tpu_torch.core.io import imread, load_image, read_flow
+    from gflow_tpu_torch.models.random_weights import seeded_state_dict
+    from gflow_tpu_torch.models.unimatch import GMFlow, GMFlowConfig, convert
+    from gflow_tpu_torch.pipeline import prep_flow
+    from gflow_tpu_torch.utils.cli import run_cli
+
+    sd = seeded_state_dict(convert.expected_torch_keys(), seed=0, scale=GMFLOW_SCALE)
+    pth = os.path.join(PREP_DIR, "gmflow_seeded.pth")
+    torch.save({"model": sd}, pth)
+    pair_s = []
+    t0 = time.perf_counter()
+    with timed_calls(GMFlow, "forward", pair_s):
+        run_cli(prep_flow.main, ["--img-dir", seq, "--checkpoint", pth])
+    wall = time.perf_counter() - t0
+    out = seq + "_flow_unimatch"
+    flows, flips, occ_share = {}, 0, []
+    for t in range(3):
+        fwd, bwd = (read_flow(os.path.join(out, f"{t:05d}_pred{s}.flo")) for s in ("", "_bwd"))
+        occ = imread(os.path.join(out, f"{t:05d}_occ_bwd.png"))
+        assert fwd.shape == bwd.shape == (H, W, 2) and occ.shape == (H, W), (fwd.shape, occ.shape)
+        assert np.isfinite(fwd).all() and np.isfinite(bwd).all()
+        n, card_occ = hold_occlusion(fwd, bwd)
+        flips += n
+        occ_share.append(float(card_occ.mean()))
+        assert np.array_equal(occ, (card_occ * 255).astype(np.uint8)), "occlusion PNG"
+        flows[t] = fwd
+    assert len(pair_s) == 6, pair_s
+
+    h, w = HOLD_FLOW_HW
+    a, b = (torch.from_numpy(load_image(os.path.join(seq, f"{t:05d}.jpg"))[:h, :w])[None]
+            for t in (0, 1))
+    cfg = GMFlowConfig()
+    with torch.inference_mode():
+        t1 = time.perf_counter()
+        want = meta_model(GMFlow, cfg, sd, "cpu")(a, b)
+        cpu_s = time.perf_counter() - t1
+        got = meta_model(GMFlow, cfg, sd, "cuda")(a.cuda(), b.cuda()).cpu()
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, atol=5e-4, rtol=1e-3)
+    mean_flow = [float(np.abs(f).mean()) for f in flows.values()]
+    log(f"# prep_flow ({SMI}): GMFlow {cfg} at 864x480 (854x480 padded), 3 pairs x 2 "
+        f"directions: {np.mean(pair_s[1:]):.4f} s per directed pair (first call "
+        f"{pair_s[0]:.4f} s), stage wall {wall:.2f} s; mean |flow| {mean_flow}; occluded "
+        f"share {occ_share}; occlusion card vs CPU on the same flows: {flips} pixels differ "
+        f"(allowed only where |diff - bound| < {OCC_MARGIN}); one directed pair at {w}x{h} "
+        f"card vs CPU max abs err {err:.3e} (atol 5e-4, rtol 1e-3; |flow| max "
+        f"{float(want.abs().max()):.3f}; CPU {cpu_s:.2f} s)")
+    return {"s_per_pair": float(np.mean(pair_s[1:])), "first_pair_s": pair_s[0], "wall_s": wall,
+            "hold_err": err, "occ_flips": flips, "flows": flows}
+
+
+def scene_flow(H_, W_, seed=0):
+    """Forward flow of a rigid scene (smooth random depth: a unique F)
+    under a rotating and translating camera, with a block moving against
+    it; and the block's slices."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(H_, dtype=np.float64), np.arange(W_, dtype=np.float64),
+                         indexing="ij")
+    f, a = 0.9 * W_, rng.uniform(1, 3, 4)
+    Z = 3 + np.sin(a[0] * xx / W_ * 3 + a[1]) * np.cos(a[2] * yy / H_ * 3 + a[3])
+    P = np.stack([(xx - W_ / 2) * Z / f, (yy - H_ / 2) * Z / f, Z], -1)
+    th, ph = 0.03, 0.02
+    Ry = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0], [-np.sin(th), 0, np.cos(th)]])
+    Rx = np.array([[1, 0, 0], [0, np.cos(ph), -np.sin(ph)], [0, np.sin(ph), np.cos(ph)]])
+    Q = P @ (Ry @ Rx).T + np.array([0.15, 0.05, 0.1])
+    flow = np.stack([f * Q[..., 0] / Q[..., 2] + W_ / 2 - xx,
+                     f * Q[..., 1] / Q[..., 2] + H_ / 2 - yy], -1)
+    block = (slice(H_ // 3, H_ // 2), slice(W_ // 3, W_ // 2))
+    flow[block] = (-6.0, 4.0)
+    return flow.astype(np.float32), block
+
+
+def hold_error_map(flow):
+    """epipolar_error_map on the card against the CPU with the same draws.
+    Returns (max |card - CPU| of the normalized map, flipped mask share,
+    the card's map)."""
+    from gflow_tpu_torch.ops.epipolar import lmeds_draws
+    from gflow_tpu_torch.pipeline.prep_moveseg import epipolar_error_map
+
+    draws = lmeds_draws(flow.shape[0] * flow.shape[1])
+    got = epipolar_error_map(flow, device="cuda", draws=draws)
+    want = epipolar_error_map(flow, device="cpu", draws=draws)
+    return float(np.abs(got - want).max()), float(((got > 0.01) != (want > 0.01)).mean()), got
+
+
+def prep_moveseg_phase(seq, flows):
+    """prep_moveseg.main on prep_flow's flows, timed per frame; its PNGs;
+    epipolar_error_map card vs CPU with the same draws on a rigid scene's
+    flow (a unique F: normalized maps within MAP_ATOL, at most MASK_FLIPS
+    of the mask flipped), reported on prep_flow's own flows (random weights
+    give flows with no epipolar structure, where the LMedS's winner is a
+    near-tie); and the translation-parallax flow of tests/test_epipolar.py
+    at 854x480: the block's mean error > 10x the background's."""
+    from gflow_tpu_torch.core.io import imread
+    from gflow_tpu_torch.pipeline import prep_moveseg
+    from gflow_tpu_torch.utils.cli import run_cli
+
+    frame_s = []
+    t0 = time.perf_counter()
+    with timed_calls(prep_moveseg, "epipolar_error_map", frame_s):
+        run_cli(prep_moveseg.main, ["--img-dir", seq])
+    wall = time.perf_counter() - t0
+    moving = []
+    for t in range(3):
+        for tag in ("epipolar_error", "open", "erode", "dilate"):
+            png = imread(os.path.join(seq + "_epipolar", f"{t:05d}_{tag}.png"))
+            assert png.shape == (H, W) and png.dtype == np.uint8, (tag, png.shape)
+        moving.append(float((imread(os.path.join(seq + "_epipolar", f"{t:05d}_open.png")) > 0)
+                            .mean()))
+    assert len(frame_s) == 3, frame_s
+
+    flow, block = scene_flow(H, W)
+    err, flipped, got = hold_error_map(flow)
+    assert err <= MAP_ATOL and flipped <= MASK_FLIPS, (err, flipped)
+    assert (got[block] > 0.01).all() and (got > 0.01).mean() < 0.1
+    prep_err, prep_flipped, _ = hold_error_map(flows[0])
+
+    par = np.zeros((H, W, 2), np.float32)  # the test's flow, its regions scaled to 854x480
+    par[..., 0] = 3.0 * np.linspace(0.8, 1.2, H)[:, None]
+    ys, xs = slice(H * 30 // 96, H * 60 // 96), slice(W * 40 // 128, W * 80 // 128)
+    par[ys, xs] = (-4.0, 2.5)
+    e = prep_moveseg.epipolar_error_map(par)
+    inside = float(e[H * 35 // 96: H * 55 // 96, W * 45 // 128: W * 75 // 128].mean())
+    outside = float(np.r_[e[:H * 20 // 96].ravel(), e[H * 70 // 96:].ravel()].mean())
+    assert inside > 10 * outside, (inside, outside)
+    log(f"# prep_moveseg ({SMI}): {np.mean(frame_s):.4f} s per frame (LMedS on the card, "
+        f"first {frame_s[0]:.4f} s), stage wall {wall:.2f} s; moving share after opening "
+        f"{moving}; error map card vs CPU with the same draws on a rigid scene's 854x480 "
+        f"flow: max abs err {err:.3e} (tol {MAP_ATOL}), mask flips {flipped:.2e} (tol {MASK_FLIPS}); "
+        f"on prep_flow's first flow (reported, not held): max abs err {prep_err:.3e}, mask "
+        f"flips {prep_flipped:.2e}; translation parallax: block mean {inside:.4f} vs "
+        f"background {outside:.3e}")
+    return {"s_per_frame": float(np.mean(frame_s)), "wall_s": wall, "map_err": err,
+            "mask_flips": flipped}
+
+
+def prep_depth_phase(seq):
+    """prep_depth.main with MASt3R catmlp+dpt at the released width
+    (seeded weights x MAST3R_SCALE) over the 4 frames: inference size 288
+    (the short side, as the JAX module resizes: 512x288, 576 tokens a
+    view, the size MASt3R's own loader gives 854x480 at 512), 10 directed
+    pairs, the full 700-step global_align; timed per pair and per Adam
+    step. The output schema; one pair on the card against the CPU; and the
+    --checkpoint path with a small released-layout .pth."""
+    import shutil
+
+    from gflow_tpu_torch.core.io import _resize_hw, imread, read_camera
+    from gflow_tpu_torch.models.mast3r import Mast3rConfig, Mast3rModel, convert
+    from gflow_tpu_torch.models.random_weights import seeded_state_dict
+    from gflow_tpu_torch.pipeline import prep_depth
+    from gflow_tpu_torch.utils.cli import run_cli
+
+    cfg = Mast3rConfig(head="catmlp+dpt")
+    t0 = time.perf_counter()
+    sd = seeded_state_dict(convert.expected_torch_keys(head="catmlp+dpt"), seed=0,
+                           scale=MAST3R_SCALE)
+    sd = {k: v for k, v in sd.items() if not k.startswith(convert._IGNORED_PREFIXES)}
+    model = meta_model(Mast3rModel, cfg, sd, "cuda")
+    weights_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in sd.values())
+    pair_s, align = [], {}
+
+    def aligned(*args, **kw):
+        res = orig_align(*args, **kw, collect_timings=True)
+        align.update(res["timings"])
+        return res
+
+    orig_align = prep_depth.global_align
+    t0 = time.perf_counter()
+    with timed_calls(Mast3rModel, "forward", pair_s), \
+            mock.patch.object(prep_depth, "global_align", aligned):
+        prep_depth.main(seq, inference_size=MAST3R_SIZE, model=model)
+    wall = time.perf_counter() - t0
+    assert len(pair_s) == 10, pair_s
+
+    names = [f"{t:05d}" for t in range(4)]
+    inf_hw = _resize_hw((H, W), MAST3R_SIZE)  # (288, 512) at 854x480
+    for n in names:
+        d = np.load(os.path.join(seq + "_depth_mast3r_s2", f"{n}.npy"))
+        png = imread(os.path.join(seq + "_depth_mast3r_s2", f"{n}.png"))
+        pts = np.load(os.path.join(seq + "_pts3d_mast3r_s2", f"{n}.npy"))
+        assert d.shape == (H, W) and png.shape == (H, W, 3) and pts.shape == inf_hw, (
+            d.shape, png.shape, pts.shape)
+        assert np.isfinite(d).all() and np.isfinite(pts).all()
+    cams = [os.path.join(seq + "_camera_mast3r_s2", f"{n}.json") for n in names]
+    focal, pp, extr = read_camera(cams)
+    assert np.isfinite(focal) and focal > 0 and pp == [W // 2, H // 2], (focal, pp)
+    assert extr.shape == (4, 3, 4) and np.isfinite(extr).all()
+
+    # one pair on the card against the CPU, at full depth
+    from gflow_tpu_torch.core.io import load_image
+
+    a, b = (torch.from_numpy(load_image(os.path.join(seq, f"{n}.jpg"), resize=MAST3R_SIZE))[None]
+            for n in names[:2])
+    assert a.shape[1:3] == inf_hw, a.shape
+    with torch.inference_mode():
+        got = model(a.cuda(), b.cuda())
+        cpu_model = meta_model(Mast3rModel, cfg, sd, "cpu")
+        t1 = time.perf_counter()
+        want = cpu_model(a, b)
+        cpu_s = time.perf_counter() - t1
+    del cpu_model
+    errs = {}
+    for v, (g, w_) in enumerate(zip(got, want), 1):
+        for k in w_:
+            errs[f"view{v} {k}"] = float((g[k].cpu() - w_[k]).abs().max())
+            torch.testing.assert_close(g[k].cpu(), w_[k], atol=1e-3, rtol=1e-3)
+    del model, got
+
+    # --checkpoint: a small released-layout .pth on a 3-frame copy
+    small = convert.expected_torch_keys(2, 2, 128, 128, 16, "linear")
+    pth = os.path.join(PREP_DIR, "mast3r_small.pth")
+    torch.save({"model": seeded_state_dict(small, seed=1, scale=MAST3R_SCALE)}, pth)
+    ck_seq = os.path.join(PREP_DIR, "ckpt_seq", "ckpt_seq")
+    os.makedirs(ck_seq)
+    for n in names[:3]:
+        shutil.copy(os.path.join(seq, f"{n}.jpg"), ck_seq)
+    run_cli(prep_depth.main, ["--img-dir", ck_seq, "--checkpoint", pth, "--inference-size",
+                              str(MAST3R_SIZE)])
+    ck_focal, _, ck_extr = read_camera(sorted(
+        os.path.join(ck_seq + "_camera_mast3r_s2", f) for f in os.listdir(
+            ck_seq + "_camera_mast3r_s2")))
+    assert ck_extr.shape == (3, 3, 4) and np.isfinite(ck_extr).all() and np.isfinite(ck_focal)
+
+    log(f"# prep_depth ({SMI}): MASt3R catmlp+dpt ViT-L 1024x24 / ViT-B 768x12, "
+        f"{n_params / 1e6:.1f}M parameters (seeded, x{MAST3R_SCALE}; built in {weights_s:.2f} s), "
+        f"{inf_hw[1]}x{inf_hw[0]} ({-(-inf_hw[0] // 16) * -(-inf_hw[1] // 16)} tokens a view): "
+        f"{np.mean(pair_s[1:]):.4f} s per directed pair (first "
+        f"{pair_s[0]:.4f} s), 10 pairs; global_align (700 Adam steps on the card) "
+        f"{json.dumps(align)}; stage wall {wall:.2f} s; focal {focal:.2f}; one pair card vs "
+        f"CPU max abs err {json.dumps(errs)} (atol 1e-3, rtol 1e-3; CPU {cpu_s:.2f} s); "
+        f"--checkpoint (small linear .pth, 3 frames) ran")
+    return {"s_per_pair": float(np.mean(pair_s[1:])), "first_pair_s": pair_s[0],
+            "align": align, "wall_s": wall, "hold_err": errs}
+
+
+def prep_phase():
+    """The prior preparation on the card, as a user runs it before a fit:
+    prep_flow, prep_moveseg (on prep_flow's flows) and prep_depth on a
+    4-frame 854x480 sequence, at the released model widths, with the
+    launch counts reset just before and read just after: the prep path
+    runs none of K1-K4."""
+    from gflow_tpu_torch.ops import _build
+
+    seq = prep_sequence()
+    _build.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flow = prep_flow_phase(seq)
+    moveseg = prep_moveseg_phase(seq, flow.pop("flows"))
+    depth = prep_depth_phase(seq)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    assert not any(launches.values()), f"the prep path launched {launches}"
+    log(f"# prep ({SMI}): wall {time.perf_counter() - t0:.2f} s (the holds included); "
+        f"K1-K4 launches {launches or 0}")
+    return {"launches": launches, "flow": flow, "moveseg": moveseg, "depth": depth}
+
+
 def device_rows(prof):
     """(device us, count, name) of every device kernel in a torch.profiler
     run: device rows only, since an operator's row repeats its kernels'
@@ -1498,6 +1838,7 @@ def main():
     fit = fit_video_phase(scene)
     ev = eval_phase(fit)
     viewer = viewer_phase(fit)
+    prep = prep_phase()
     # K1 at K = 128 on the eval's (F = 2) and the viewer's (F = 3) own packed
     # input, K4 on the eval's two-class stream
     for where, rec in (("eval F=2", ev["packed"]), ("viewer F=3", viewer["packed"])):
@@ -1526,6 +1867,7 @@ def main():
                "launches": launches[name], "fit_video_launches": fit["launches"][name],
                "eval_launches": ev["launches"].get(name, 0),
                "viewer_launches": viewer["launches"].get(name, 0),
+               "prep_launches": prep["launches"].get(name, 0),
                "max_abs_err": r["max_abs_err"],
                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}

@@ -1,15 +1,16 @@
-"""PyTorch/CUDA port of gflow-tpu: the 4D Gaussian fit of a video
+"""PyTorch/CUDA port of gflow-tpu: the prior preparation that a fit reads
+(``pipeline.prep_flow``, ``prep_moveseg`` and ``prep_depth``, with the
+GMFlow and MASt3R models of ``models/``), the 4D Gaussian fit of a video
 (``pipeline.fit_video``) and the per-frame stages under it, the benchmark
 that scores a fit (``eval.benchmark``), the viewer (``viz.viewer``) and
 the TAP-Vid splitter (``pipeline.split_tapvid``).
 
 Mirrors the layout of ``gflow_tpu`` (``core/``, ``ops/``, ``opt/``,
-``pipeline/``, ``eval/``, ``utils/``, ``viz/``, ``cli/``) so each module's
-counterpart is easy to find. The compositor
-forward/backward and the tile-list packer run as hand-written CUDA kernels
-(``csrc/``) on CUDA tensors; CPU tensors take each kernel's plain PyTorch
-version. Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``.
+``models/``, ``pipeline/``, ``eval/``, ``utils/``, ``viz/``, ``cli/``) so
+each module's counterpart is easy to find. The compositor forward/backward
+and the tile-list packer run as hand-written CUDA kernels (``csrc/``) on
+CUDA tensors; CPU tensors take each kernel's plain PyTorch version. Entry
+points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 import torch
 

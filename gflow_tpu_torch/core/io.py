@@ -52,14 +52,17 @@ def resize_image(arr: np.ndarray, size: int | None) -> np.ndarray:
     shorter side to `size` (torchvision Resize semantics)."""
     if size is None:
         return arr
+    return resize_to(arr, _resize_hw(arr.shape[:2], size))
+
+
+def resize_to(arr: np.ndarray, hw) -> np.ndarray:
+    """resize_image's filter to exactly `hw` = (H, W)."""
+    if tuple(arr.shape[:2]) == tuple(hw):
+        return arr
     squeeze = arr.ndim == 2
-    if squeeze:
-        arr = arr[..., None]
-    new_h, new_w = _resize_hw(arr.shape[:2], size)
-    if (new_h, new_w) == arr.shape[:2]:
-        return arr[..., 0] if squeeze else arr
-    x = torch.from_numpy(np.ascontiguousarray(arr, np.float32)).permute(2, 0, 1)[None]
-    out = torch.nn.functional.interpolate(x, size=(new_h, new_w), mode="bilinear",
+    x = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+    x = (x[..., None] if squeeze else x).permute(2, 0, 1)[None]
+    out = torch.nn.functional.interpolate(x, size=tuple(hw), mode="bilinear",
                                           align_corners=False, antialias=True)
     out = out[0].permute(1, 2, 0).numpy()
     return out[..., 0] if squeeze else out

@@ -10,8 +10,8 @@ weights-gated, as in the JAX package: without a weights file LPIPS is None
 The convolutions and max-pools are ``F.conv2d`` / ``F.max_pool2d`` (the JAX
 package leaves them to XLA too). cuDNN would run a float32 convolution in
 TF32 by default (``torch.backends.cudnn.allow_tf32``), about 1e-3 from the
-float32 metric, so the forward runs under ``cudnn.flags(allow_tf32=False)``
-without touching the caller's global flags.
+float32 metric, so the forward runs under ``models.precision.fp32_math``
+(TF32 off) without touching the caller's global flags.
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
+from ..models.precision import fp32_math
 from ..opt.losses import ssim as _ssim
 
 
@@ -93,9 +94,7 @@ class LPIPSAlex(torch.nn.Module):
 
     @torch.no_grad()
     def forward(self, img, ref) -> torch.Tensor:
-        cudnn = torch.backends.cudnn
-        with cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
-                         deterministic=cudnn.deterministic, allow_tf32=False):
+        with fp32_math():
             fa, fb = self.features(self.prep(img)), self.features(self.prep(ref))
         total = torch.zeros((), device=self.shift.device)
         for i, (a, b) in enumerate(zip(fa, fb)):

@@ -73,8 +73,8 @@ def main(
 ):
     if shard_devices:
         raise NotImplementedError(
-            "the tile-sharded multi-GPU fitting mode (shard_devices) is not ported yet "
-            "(ROADMAP Queue 1, item 8)")
+            "the tile-sharded multi-GPU fitting mode (shard_devices) waits for "
+            "the multi-GPU slice (ROADMAP, Queue 1)")
 
     files = gio.list_sequence_files(
         sequence_path, frame_start=frame_start, frame_range=frame_range,

@@ -417,3 +417,85 @@ def test_lpips_on_the_card_matches_the_cpu(dev, monkeypatch):
     got, want = lpips(a, b, w, device=dev), lpips(a, b, w, device="cpu")
     assert want > 0 and got == pytest.approx(want, rel=1e-5)
     assert torch.backends.cudnn.allow_tf32  # the caller's flag is left as it was
+
+
+def _fp32_guard_left_flags(monkeypatch):
+    """Allow TF32 globally (cuDNN's default, and a caller's matmul
+    setting): the prior models' forwards must still run in fp32."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+
+
+def test_gmflow_on_the_card_matches_the_cpu(dev, monkeypatch):
+    """GMFlow (2 layers, 2 refinements, 32 channels; seeded weights x0.5) on
+    a 64x96 pair: the card against the CPU to the JAX parity test's 5e-4
+    / 1e-3, with TF32 allowed outside the model, and no K1-K4 launch."""
+    from gflow_tpu_torch.models.random_weights import seeded_state_dict
+    from gflow_tpu_torch.models.unimatch import GMFlow, GMFlowConfig, convert
+
+    _fp32_guard_left_flags(monkeypatch)
+    model = GMFlow(GMFlowConfig(feature_channels=32, num_transformer_layers=2,
+                                num_reg_refine=2, attn_splits_list=(2, 4))).eval()
+    model.load_state_dict(seeded_state_dict(convert.expected_torch_keys(2, 32), 0, 0.5))
+    rng = np.random.default_rng(2)
+    a, b = (torch.from_numpy(rng.uniform(0, 1, (1, 64, 96, 3)).astype(np.float32))
+            for _ in range(2))
+    with torch.inference_mode():
+        want = model(a, b)
+        _build.LAUNCHES.clear()
+        got = model.to(dev)(a.to(dev), b.to(dev)).cpu()
+    assert not any(_build.LAUNCHES.values())
+    torch.testing.assert_close(got, want, atol=5e-4, rtol=1e-3)
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+
+
+def test_mast3r_on_the_card_matches_the_cpu(dev, monkeypatch):
+    """MASt3R catmlp+dpt (encoder 32, decoder 24, depth 2; seeded weights
+    x0.3) on a 48x32 pair: the card against the CPU to the JAX parity
+    test's 2e-4 / 1e-3, with TF32 allowed outside the model."""
+    from gflow_tpu_torch.models.mast3r import Mast3rConfig, Mast3rModel, convert
+    from gflow_tpu_torch.models.random_weights import seeded_state_dict
+
+    _fp32_guard_left_flags(monkeypatch)
+    model = Mast3rModel(Mast3rConfig(enc_dim=32, enc_depth=2, enc_heads=2, dec_dim=24,
+                                     dec_depth=2, dec_heads=2, desc_dim=6,
+                                     head="catmlp+dpt")).eval()
+    sd = seeded_state_dict(convert.expected_torch_keys(2, 2, 32, 24, 16, "catmlp+dpt", 6), 0, 0.3)
+    model.load_state_dict({k: v for k, v in sd.items() if "refinenet4.resConfUnit1" not in k})
+    rng = np.random.default_rng(1)
+    a, b = (torch.from_numpy(rng.uniform(0, 1, (1, 48, 32, 3)).astype(np.float32))
+            for _ in range(2))
+    with torch.inference_mode():
+        want = model(a, b)
+        got = model.to(dev)(a.to(dev), b.to(dev))
+    for g, w in zip(got, want):
+        for k in w:
+            torch.testing.assert_close(g[k].cpu(), w[k], atol=2e-4, rtol=1e-3)
+
+
+def test_epipolar_on_the_card_matches_the_cpu(dev):
+    """The LMedS on the card with the CPU's draws, on a rigid scene's flow
+    with a block moving against it: normalized error maps within 1e-3 and
+    the same moving mask."""
+    from gflow_tpu_torch.ops.epipolar import lmeds_draws
+    from gflow_tpu_torch.pipeline.prep_moveseg import epipolar_error_map
+
+    H, W = 120, 160
+    yy, xx = np.meshgrid(np.arange(H, dtype=np.float64), np.arange(W, dtype=np.float64),
+                         indexing="ij")
+    Z = 3 + np.sin(xx / 23) * np.cos(yy / 17)
+    f = 0.9 * W
+    P = np.stack([(xx - W / 2) * Z / f, (yy - H / 2) * Z / f, Z], -1)
+    th = 0.03
+    R = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0], [-np.sin(th), 0, np.cos(th)]])
+    Q = P @ R.T + np.array([0.15, 0.05, 0.1])
+    flow = np.stack([f * Q[..., 0] / Q[..., 2] + W / 2 - xx,
+                     f * Q[..., 1] / Q[..., 2] + H / 2 - yy], -1).astype(np.float32)
+    block = (slice(40, 60), slice(50, 80))
+    flow[block] = (-6.0, 4.0)
+    draws = lmeds_draws(H * W)
+    got = epipolar_error_map(flow, device=dev, draws=draws)
+    want = epipolar_error_map(flow, device="cpu", draws=draws)
+    np.testing.assert_allclose(got, want, atol=1e-3)
+    np.testing.assert_array_equal(got > 0.01, want > 0.01)
+    assert (got[block] > 0.01).all() and (got > 0.01).mean() < 0.1

@@ -81,7 +81,7 @@ def test_refused_options(tmp_path, monkeypatch):
     import torch
 
     seq = make_sequence(tmp_path, n_frames=2, W=48, H=32)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
+    with pytest.raises(NotImplementedError, match=r"multi-GPU slice \(ROADMAP, Queue 1\)"):
         fit_main(sequence_path=seq, shard_devices=2, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

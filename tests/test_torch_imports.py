@@ -49,5 +49,12 @@ def test_port_has_the_slice_modules():
                 "eval/camera_eval.py", "eval/benchmark.py", "eval/benchmark_multi.py",
                 "viz/viewer.py", "pipeline/split_tapvid.py", "cli/benchmark.py",
                 "cli/benchmark_multi.py", "cli/convert_lpips.py", "cli/split_tapvid.py",
-                "cli/viewer.py"):
+                "cli/viewer.py", "models/__init__.py", "models/precision.py",
+                "models/random_weights.py", "models/unimatch/__init__.py",
+                "models/unimatch/gmflow.py", "models/unimatch/convert.py",
+                "models/mast3r/__init__.py", "models/mast3r/vit.py", "models/mast3r/dpt_head.py",
+                "models/mast3r/convert.py", "models/mast3r/alignment.py", "ops/epipolar.py",
+                "pipeline/prep_flow.py", "pipeline/prep_moveseg.py", "pipeline/prep_depth.py",
+                "cli/prep_flow.py", "cli/prep_moveseg.py", "cli/prep_depth.py",
+                "cli/convert_weights.py"):
         assert f"gflow_tpu_torch/{mod}" in names, mod

@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch/CUDA port on one GPU.
+"""Smoke run of the PyTorch/CUDA port on the visible GPUs (one suffices).
 
     python3 chip_smoke.py
 
@@ -55,13 +55,27 @@
    20 requests, and the HTTP handler on 127.0.0.1 (/info, /render); then
    times K1 at K = 128 on the eval's (F = 2) and the viewer's (F = 3) own
    packed input and K4 on the eval's two-class stream;
-8. times one frame at the canonical budget (150 camera + 300 full
+8. drives the multi-GPU modes on the visible cards (band b and worker w
+   on cuda:(b mod count); with one card all on cuda:0): (a) the band
+   compositor (4 bands: 30 tile rows padded to 32) on the main path's
+   packed input, K1 / K2 and K3 per band against the plain band version
+   and against the unbanded kernel call; (b) the 3-stage check with the
+   stages banded under a 4-band fitting_mesh against the same run
+   unbanded, the launch counts reset just before the banded run and read
+   just after, and 20 full-stage iterations timed unbanded, in 4 bands on
+   cuda:0 and, with more cards, over them; (c) fit_multi on max(2,
+   count) copies of the fit_video sequence in spawned workers (PSNR
+   floor, scenes per minute); (d) prep_flow and prep_depth with
+   mesh_devices=2 against 0; (e) with two or more cards,
+   fit_video(shard_devices=count) end to end;
+9. times one frame at the canonical budget (150 camera + 300 full
    iterations, occ densify at 0 and error densify every 100 x2) after one
    warm-up frame; profiles a 20-iteration full stage (its Chrome trace
    written to logs/chip_smoke/profile/trace.json) and, alone, the binning
    layer (bin_gaussians) on each stage's first-iteration input;
-9. prints the kernels JSON line (with each kernel's launches in the main
-   path, in fit_video, in the eval and in the viewer), then as its last line
+10. prints the kernels JSON line (with each kernel's launches in the main
+   path, in fit_video, in the eval, in the viewer, in prep and in the
+   multi-GPU phase's banded stages), then as its last line
    {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero. Without CUDA it exits 1 and prints
@@ -196,7 +210,7 @@ def cutoff_bound(rec, t, p, rel=1e-4):
     attrs, counts = rec["attrs"], rec["counts"]
     T, K, CA = attrs.shape
     F = CA - 6 - int(rec["with_cov"])
-    px, py = tile_pixels(T, rec["n_tx"], attrs.device)
+    px, py = tile_pixels(T, rec["n_tx"], attrs.device, rec.get("row0", 0))
     a = attrs[t]  # (n, K, CA)
     dx = px[t, p][:, None] - a[..., 0]
     dy = py[t, p][:, None] - a[..., 1]
@@ -510,11 +524,11 @@ def capture_packed():
 
     calls, packed = [], cuda_raster.packed_composite
 
-    def record(g_attrs, counts, bg, n_tx, with_cov=False):
-        res = packed(g_attrs, counts, bg, n_tx, with_cov)
+    def record(g_attrs, counts, bg, n_tx, with_cov=False, row0=0):
+        res = packed(g_attrs, counts, bg, n_tx, with_cov, row0)
         out = res[0] if with_cov else res
         rec = dict(attrs=g_attrs.detach().clone(), counts=counts.clone(),
-                   bg=bg.detach().clone(), n_tx=n_tx, with_cov=with_cov,
+                   bg=bg.detach().clone(), n_tx=n_tx, with_cov=with_cov, row0=row0,
                    out=out.detach().clone())
         if out.requires_grad:
             out.register_hook(lambda g: rec.__setitem__("g", g.detach().contiguous().clone()))
@@ -1028,10 +1042,10 @@ def compositor_shapes():
 
     counts, packed = collections.Counter(), cuda_raster.packed_composite
 
-    def tally(g_attrs, counts_, bg, n_tx, with_cov=False):
+    def tally(g_attrs, counts_, bg, n_tx, with_cov=False, row0=0):
         T, K, CA = g_attrs.shape
         counts[f"{'K2' if with_cov else 'K1'} K={K} F={CA - 6 - int(with_cov)}"] += 1
-        return packed(g_attrs, counts_, bg, n_tx, with_cov)
+        return packed(g_attrs, counts_, bg, n_tx, with_cov, row0)
 
     with mock.patch.object(cuda_raster, "packed_composite", tally):
         yield counts
@@ -1115,7 +1129,7 @@ def fit_video_phase(scene):
     rebin = rebin_check(scene)
     return {"launches": launches, "telemetry": summary, "psnr": psnr, "seg_fill": fill,
             "render_err": errs, "rebin": rebin, "shapes": dict(shapes),
-            "log_dir": trainer.dir, "sequence": str(seq)}
+            "log_dir": trainer.dir, "sequence": str(seq), "render_config": rc}
 
 
 def checkpoint_scene(path):
@@ -1510,7 +1524,7 @@ def prep_flow_phase(seq):
         f"card vs CPU max abs err {err:.3e} (atol 5e-4, rtol 1e-3; |flow| max "
         f"{float(want.abs().max()):.3f}; CPU {cpu_s:.2f} s)")
     return {"s_per_pair": float(np.mean(pair_s[1:])), "first_pair_s": pair_s[0], "wall_s": wall,
-            "hold_err": err, "occ_flips": flips, "flows": flows}
+            "hold_err": err, "occ_flips": flips, "flows": flows, "sd": sd}
 
 
 def scene_flow(H_, W_, seed=0):
@@ -1669,7 +1683,7 @@ def prep_depth_phase(seq):
         for k in w_:
             errs[f"view{v} {k}"] = float((g[k].cpu() - w_[k]).abs().max())
             torch.testing.assert_close(g[k].cpu(), w_[k], atol=1e-3, rtol=1e-3)
-    del model, got
+    del got
 
     # --checkpoint: a small released-layout .pth on a 3-frame copy
     small = convert.expected_torch_keys(2, 2, 128, 128, 16, "linear")
@@ -1695,7 +1709,7 @@ def prep_depth_phase(seq):
         f"CPU max abs err {json.dumps(errs)} (atol 1e-3, rtol 1e-3; CPU {cpu_s:.2f} s); "
         f"--checkpoint (small linear .pth, 3 frames) ran")
     return {"s_per_pair": float(np.mean(pair_s[1:])), "first_pair_s": pair_s[0],
-            "align": align, "wall_s": wall, "hold_err": errs}
+            "align": align, "wall_s": wall, "hold_err": errs, "model": model}
 
 
 def prep_phase():
@@ -1718,7 +1732,318 @@ def prep_phase():
     assert not any(launches.values()), f"the prep path launched {launches}"
     log(f"# prep ({SMI}): wall {time.perf_counter() - t0:.2f} s (the holds included); "
         f"K1-K4 launches {launches or 0}")
-    return {"launches": launches, "flow": flow, "moveseg": moveseg, "depth": depth}
+    # the models stay for the multi-GPU phase's mesh_devices holds
+    return {"launches": launches, "flow": flow, "moveseg": moveseg, "depth": depth, "seq": seq,
+            "models": (flow.pop("sd"), depth.pop("model"))}
+
+
+# ---------------------------------------------------------------------------
+# multi-GPU: the tile-band fitting mode, the scene sweep, sharded prep
+# ---------------------------------------------------------------------------
+
+MULTI_DIR = os.path.join(FIT_DIR, "multi")
+N_BANDS = 4
+# banded against unbanded check_run, both deterministic: a band composites
+# its tiles in place (row0) with the same kernels, so the two runs do the
+# same arithmetic (0 apart on NVIDIA H100 80GB HBM3 cards at 700 W); held
+# to float32 noise
+BAND_LOSS_RTOL = 1e-6
+BAND_PARAM_ATOL = 1e-6
+
+
+def card_list(n):
+    """n devices over the visible cards, round robin: with one card every
+    entry is cuda:0."""
+    return tuple(torch.device("cuda", i % torch.cuda.device_count()) for i in range(n))
+
+
+def padded_block(rec, D):
+    """rec's packed block, upstream gradient and counts padded with empty
+    tiles to whole bands of tile rows; returns them and the rows per band."""
+    attrs, counts, g = rec["attrs"], rec["counts"], rec["g"]
+    n_ty = attrs.shape[0] // rec["n_tx"]
+    pad = (-(-n_ty // D) * D - n_ty) * rec["n_tx"]
+    return (torch.cat([attrs, attrs.new_zeros(pad, *attrs.shape[1:])]),
+            torch.cat([counts, counts.new_zeros(pad)]),
+            torch.cat([g, g.new_zeros(pad, *g.shape[1:])]), -(-n_ty // D) * D // D)
+
+
+def band_hold(rec, bands):
+    """The band compositor on one packed input of the main path (K1 or K2
+    forward, K3 backward, one band per entry of `bands`): each band's call
+    against the plain band version (hold_renders), and the whole against
+    the unbanded kernel call on the same input (hold_composite; gradients
+    normalized by max |ref| per column, 5e-4, as bwd_row). Returns errors
+    and times (host-inclusive, cuda_ms: a band's copies cannot be graphed
+    across cards)."""
+    from gflow_tpu_torch.ops import _build, cuda_raster
+
+    attrs_p, counts_p, g_p, rows_per = padded_block(rec, len(bands))
+    T, cov, bg, n_tx = rec["attrs"].shape[0], rec["with_cov"], rec["bg"], rec["n_tx"]
+
+    def banded():
+        a = attrs_p.detach().requires_grad_()
+        res = cuda_raster.band_composite(a, counts_p, bg, n_tx, rows_per, bands, cov)
+        out = res[0] if cov else res
+        return {"out": out.detach(), "cov": res[1] if cov else None,
+                "grad": torch.autograd.grad(out, a, g_p)[0]}
+
+    def whole():
+        a = rec["attrs"].detach().requires_grad_()
+        res = cuda_raster.packed_composite(a, rec["counts"], bg, n_tx, cov)
+        out = res[0] if cov else res
+        return {"out": out.detach(), "cov": res[1] if cov else None,
+                "grad": torch.autograd.grad(out, a, rec["g"])[0]}
+
+    before = dict(_build.LAUNCHES)
+    got = banded()
+    torch.cuda.synchronize()
+    fwd = "composite_fwd_cov" if cov else "composite_fwd"
+    delta = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()}
+    assert delta.get(fwd) == len(bands) and delta.get("composite_bwd") == len(bands), delta
+    _, plain, calls, steps = hold_renders(banded, atol=5e-4, rtol=1e-3)
+    assert len(calls) == len(bands), len(calls)
+    ref = whole()
+
+    def grad_err(g_, w_):
+        scale = w_.abs().amax(dim=(0, 1)).clamp_min(1e-12)
+        return float(((g_ - w_) / scale).abs().max())
+
+    plain_grad_err = grad_err(got["grad"], plain["grad"])
+    out_err, whole_steps = hold_composite(got["out"][:T], ref["out"], rec, 5e-4, 1e-3)
+    whole_grad_err = grad_err(got["grad"][:T], ref["grad"])
+    assert plain_grad_err <= 5e-4 and whole_grad_err <= 5e-4, (plain_grad_err, whole_grad_err)
+    assert not got["grad"][T:].any(), "padding tiles got a gradient"
+    if cov:
+        torch.testing.assert_close(got["cov"][:T], ref["cov"], atol=5e-4, rtol=1e-3)
+        torch.testing.assert_close(got["cov"], plain["cov"], atol=5e-4, rtol=1e-3)
+    return {"bands": len(bands), "rows_per_band": rows_per, "out_err_vs_unbanded": out_err,
+            "grad_err_vs_unbanded": whole_grad_err, "grad_err_vs_plain": plain_grad_err,
+            "steps_per_band": steps, "steps_vs_unbanded": whole_steps,
+            "banded_ms": cuda_ms(banded, reps=10), "unbanded_ms": cuda_ms(whole, reps=10)}
+
+
+def banded_scene(scene, bands):
+    """scene with its RenderConfig as RenderConfig.for_scene gives it under
+    use_mesh(fitting_mesh(device=bands))."""
+    import dataclasses
+
+    from gflow_tpu_torch.ops.render import RenderConfig
+    from gflow_tpu_torch.parallel.mesh import fitting_mesh, use_mesh
+
+    img, rcfg = scene[0], scene[5]
+    with use_mesh(fitting_mesh(device=bands)):
+        rc = RenderConfig.for_scene(W, H, N_POINTS, image=img)
+    assert rc == dataclasses.replace(rcfg, band_devices=tuple(bands)), rc
+    return (*scene[:5], rc)
+
+
+def stage_ms(scene, iters=20):
+    """ms per iteration of a full stage of `iters` iterations from the
+    scene's init (no densify, the final forward included), after a warm-up
+    stage."""
+    from gflow_tpu_torch.opt.state import init_frame_state
+    from gflow_tpu_torch.opt.train import StageConfig, train_stage
+
+    img, depth, intr, params, n0, rcfg = scene
+    tg = targets(img, depth)
+    cfg = StageConfig(W=W, H=H, iterations=iters, render=rcfg)
+    state = init_frame_state(CAPACITY)._replace(
+        n_alive=torch.tensor(n0, dtype=torch.int32, device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    train_stage(params, state, tg, intr, gen, cfg, dynamics()[1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_stage(params, state, tg, intr, gen, cfg, dynamics()[1])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def banded_stages(scene, bands):
+    """check_run (camera 10, full 10 with its two densifies, camera 10) with
+    the stages' tile rows in bands, against the same run unbanded, both
+    deterministic, the launch counts reset just before the banded run and
+    read just after; then 20 full-stage iterations timed unbanded, in
+    N_BANDS bands on cuda:0 and, with more cards, in bands over them (in
+    turns: each timed twice)."""
+    from gflow_tpu_torch.ops import _build
+
+    sb = banded_scene(scene, bands)
+    with deterministic():
+        traces_u, alive_u, p_u, _ = check_run(scene)
+        _build.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        traces_b, alive_b, p_b, out_b = check_run(sb)
+        torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    for name in _build.KERNELS:
+        assert launches.get(name, 0) > 0, f"kernel {name} never launched in the banded stages"
+    assert alive_b == alive_u, (alive_b, alive_u)
+    rel = [float(((b - u).abs() / u.abs()).max()) for b, u in zip(traces_b, traces_u)]
+    for b, u in zip(traces_b, traces_u):
+        torch.testing.assert_close(b, u, rtol=BAND_LOSS_RTOL, atol=1e-5)
+    pdiff = {k: float((getattr(p_b, k) - getattr(p_u, k)).abs().max()) for k in p_u._fields}
+    assert max(pdiff.values()) <= BAND_PARAM_ATOL, pdiff
+    assert all(torch.isfinite(v).all() for v in out_b.values())
+
+    configs = {"unbanded": scene, f"{N_BANDS} bands on cuda:0": banded_scene(
+        scene, (torch.device("cuda", 0),) * N_BANDS)}
+    if torch.cuda.device_count() > 1:
+        configs[f"{N_BANDS} bands over {torch.cuda.device_count()} cards"] = sb
+    order = [*configs, *reversed(list(configs))]
+    times = {k: [] for k in configs}
+    for k in order:
+        times[k].append(stage_ms(configs[k]))
+    ms = {k: float(np.mean(v)) for k, v in times.items()}
+    log(f"# banded stages ({[str(d) for d in bands]}): launches {launches}; n_alive {alive_b} "
+        f"(= unbanded); loss traces vs unbanded max rel diff per stage {rel} (rtol "
+        f"{BAND_LOSS_RTOL}); params max abs diff {json.dumps(pdiff)} (tol {BAND_PARAM_ATOL}); "
+        f"full stage ms/iter ({SMI}, "
+        f"20 iterations, each config twice in turns): {json.dumps(times)}")
+    return {"launches": launches, "loss_rel": rel, "param_max_diff": pdiff, "ms_per_iter": ms}
+
+
+def fit_multi_hold(fit, devices=None):
+    """fit_scenes over one copy of the fit_video phase's sequence per entry
+    of `devices` (default card_list(max(2, cards)): two workers on cuda:0
+    with one card), one spawned worker each, at the fit_video phase's
+    depth: each scene's checkpoints and its final frame's PSNR (the final
+    checkpoint rendered by a trainer) above PSNR_FLOOR; wall seconds and
+    scenes per minute."""
+    import shutil
+
+    from gflow_tpu_torch.core.io import load_image
+    from gflow_tpu_torch.parallel.scene_sweep import fit_scenes
+    from gflow_tpu_torch.pipeline.trainer import GFlowTrainer
+
+    devices = [str(d) for d in (devices or card_list(max(2, torch.cuda.device_count())))]
+    n = len(devices)
+    shutil.rmtree(MULTI_DIR, ignore_errors=True)
+    seqs = [write_sequence(os.path.join(MULTI_DIR, f"scene{i}")) for i in range(n)]
+    t0 = time.perf_counter()
+    res = fit_scenes(seqs, fit_kwargs=FIT, devices=devices)
+    wall = time.perf_counter() - t0
+    psnr = []
+    for seq in seqs:
+        d = res[str(seq)]
+        ckpts = sorted(os.listdir(os.path.join(d, "ckpt")))
+        assert len(ckpts) == 3, (d, ckpts)
+        gt = load_image(os.path.join(str(seq), "00002.jpg"))
+        shell = GFlowTrainer(gt, num_points=N_POINTS, make_logs=False,
+                             render_config=fit["render_config"])
+        shell.load_checkpoint(os.path.join(d, "ckpt", ckpts[-1]))
+        final = shell.render_views(("rgb",))["rgb"].cpu().numpy()
+        psnr.append(float(-10 * np.log10(np.mean((final - gt) ** 2))))
+    assert min(psnr) > PSNR_FLOOR, psnr
+    log(f"# fit_multi ({SMI}): {n} scenes over {devices} in spawned workers: wall {wall:.2f} s, "
+        f"{n / wall * 60:.2f} scenes per minute; final frame PSNR {psnr} (floor {PSNR_FLOOR})")
+    return {"scenes": n, "devices": devices, "wall_s": wall, "scenes_per_min": n / wall * 60,
+            "psnr": psnr}
+
+
+def copy_frames(seq, dest, n):
+    import shutil
+
+    os.makedirs(dest)
+    for t in range(n):
+        shutil.copy(os.path.join(seq, f"{t:05d}.jpg"), dest)
+    return dest
+
+
+@contextmanager
+def mesh_over_cards():
+    """make_mesh with the mesh's devices over the visible cards, round
+    robin (the prep mains ask for n cards, which one card cannot give)."""
+    from gflow_tpu_torch.parallel import mesh
+
+    make = mesh.make_mesh
+    with mock.patch.object(mesh, "make_mesh", lambda n, data_parallel=None, device=None:
+                           make(n, data_parallel, device=list(card_list(n)))):
+        yield
+
+
+def prep_mesh_hold(prep):
+    """prep_flow (GMFlow at the released width, the prep phase's seeded
+    weights) on the prep phase's 4 frames and prep_depth (its MASt3R) on 3
+    of them, each with mesh_devices=2 against mesh_devices=0: flows within
+    2e-4, depth within 2e-3 (tests/test_sharded_infer.py:52, 83)."""
+    from gflow_tpu_torch.core.io import read_flow
+    from gflow_tpu_torch.models.unimatch import GMFlow, GMFlowConfig
+    from gflow_tpu_torch.pipeline import prep_depth, prep_flow
+
+    seq, (sd, mast3r) = prep["seq"], prep.pop("models")
+    root = os.path.join(MULTI_DIR, "prep")
+    gmflow = meta_model(GMFlow, GMFlowConfig(), sd, "cuda")
+    runs, secs = {}, {}
+    with mesh_over_cards():
+        for m in (0, 2):
+            d = copy_frames(seq, os.path.join(root, f"flow{m}", "seq"), 4)
+            t0 = time.perf_counter()
+            prep_flow.main(d, model=gmflow, mesh_devices=m)
+            secs[f"flow mesh {m}"] = time.perf_counter() - t0
+            runs[("flow", m)] = d + "_flow_unimatch"
+            d = copy_frames(seq, os.path.join(root, f"depth{m}", "seq"), 3)
+            t0 = time.perf_counter()
+            prep_depth.main(d, model=mast3r, inference_size=MAST3R_SIZE, mesh_devices=m)
+            secs[f"depth mesh {m}"] = time.perf_counter() - t0
+            runs[("depth", m)] = d + "_depth_mast3r_s2"
+    flow_err = max(float(np.abs(read_flow(os.path.join(runs[("flow", 2)], f)) - read_flow(
+        os.path.join(runs[("flow", 0)], f))).max()) for f in sorted(os.listdir(runs[("flow", 0)]))
+        if f.endswith(".flo"))
+    depth_err = max(float(np.abs(np.load(os.path.join(runs[("depth", 2)], f)) - np.load(
+        os.path.join(runs[("depth", 0)], f))).max()) for f in sorted(os.listdir(
+            runs[("depth", 0)])) if f.endswith(".npy"))
+    assert flow_err <= 2e-4 and depth_err <= 2e-3, (flow_err, depth_err)
+    del gmflow, mast3r
+    log(f"# prep mesh_devices=2 vs 0 over {[str(d) for d in card_list(2)]} ({SMI}): flows max "
+        f"abs diff {flow_err:.3e} (tol 2e-4), depth {depth_err:.3e} (tol 2e-3); seconds "
+        f"{json.dumps(secs)}")
+    return {"flow_err": flow_err, "depth_err": depth_err, "seconds": secs}
+
+
+def shard_fit_video():
+    """With two or more cards: fit_video(shard_devices=count) at the cut
+    depth end to end, every stage banded over the cards."""
+    from gflow_tpu_torch.ops import _build
+
+    count = torch.cuda.device_count()
+    _build.LAUNCHES.clear()
+    trainer, _, wall = run_fit_video(os.path.join(MULTI_DIR, "shard"), None, shard_devices=count)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    assert trainer.render_config.band_devices == card_list(count), trainer.render_config
+    psnr, fill = fit_video_outputs(trainer)
+    assert psnr > PSNR_FLOOR and fill > 50, (psnr, fill)
+    summary = trainer.telemetry.summary()
+    log(f"# fit_video shard_devices={count} ({SMI}): {summary['sec_per_frame']} s/frame over "
+        f"{summary['frames']} frames, wall {wall:.2f} s; PSNR {psnr:.3f} dB; launches {launches}")
+    return {"s_per_frame": summary["sec_per_frame"], "wall_s": wall, "psnr": psnr,
+            "launches": launches}
+
+
+def multigpu_phase(scene, inputs, fit, prep):
+    """The multi-GPU modes on the visible cards (band b on cuda:(b mod
+    count)): (a) the band compositor on the main path's packed input, (b)
+    the camera and full stages banded against unbanded, and their ms/iter,
+    (c) fit_multi, (d) prep with mesh_devices=2 against 0 and, with two or
+    more cards, (e) fit_video(shard_devices=count)."""
+    t0 = time.perf_counter()
+    bands = card_list(N_BANDS)
+    log(f"# multi-GPU phase: {torch.cuda.device_count()} visible cards; {N_BANDS} bands on "
+        f"{[str(d) for d in bands]}")
+    a = {}
+    for stage, rec in inputs[96].items():
+        a[stage] = band_hold(rec, bands)
+        log(f"# band compositor, main path {stage} stage input (K=96, {N_BANDS} bands): "
+            f"{json.dumps(a[stage])}")
+    b = banded_stages(scene, bands)
+    c = fit_multi_hold(fit)
+    d = prep_mesh_hold(prep)
+    e = shard_fit_video() if torch.cuda.device_count() > 1 else None
+    wall = time.perf_counter() - t0
+    log(f"# multi-GPU phase wall {wall:.1f} s")
+    return {"band_compositor": a, "stages": b, "fit_multi": c, "prep": d, "shard_fit_video": e,
+            "launches": b["launches"], "wall_s": wall}
 
 
 def device_rows(prof):
@@ -1839,6 +2164,7 @@ def main():
     ev = eval_phase(fit)
     viewer = viewer_phase(fit)
     prep = prep_phase()
+    multi = multigpu_phase(scene, inputs, fit, prep)
     # K1 at K = 128 on the eval's (F = 2) and the viewer's (F = 3) own packed
     # input, K4 on the eval's two-class stream
     for where, rec in (("eval F=2", ev["packed"]), ("viewer F=3", viewer["packed"])):
@@ -1868,6 +2194,7 @@ def main():
                "eval_launches": ev["launches"].get(name, 0),
                "viewer_launches": viewer["launches"].get(name, 0),
                "prep_launches": prep["launches"].get(name, 0),
+               "multigpu_launches": multi["launches"][name],
                "max_abs_err": r["max_abs_err"],
                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}

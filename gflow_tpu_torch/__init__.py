@@ -3,7 +3,8 @@
 GMFlow and MASt3R models of ``models/``), the 4D Gaussian fit of a video
 (``pipeline.fit_video``) and the per-frame stages under it, the benchmark
 that scores a fit (``eval.benchmark``), the viewer (``viz.viewer``) and
-the TAP-Vid splitter (``pipeline.split_tapvid``).
+the TAP-Vid splitter (``pipeline.split_tapvid``), and the multi-GPU modes
+(``parallel``: the tile-band fit, the scene sweep, sharded prep).
 
 Mirrors the layout of ``gflow_tpu`` (``core/``, ``ops/``, ``opt/``,
 ``models/``, ``pipeline/``, ``eval/``, ``utils/``, ``viz/``, ``cli/``) so

@@ -10,7 +10,11 @@
 // [u, v, conic a, b, c, opacity, feat F (, mov)], depth-sorted front to
 // back; only the first count_t = min(counts[t], K) rows of a tile are live
 // (later rows hold clamped-gather garbage and are ignored). Pixel i of tile
-// t sits at (tx0 + (i & 15), ty0 + (i >> 4)): integer coordinates, no +0.5.
+// t sits at (tx0 + (i & 15), ty0 + (i >> 4)): integer coordinates, no +0.5,
+// tx0 = 16 (t % n_tx), ty0 = 16 (t / n_tx + row0). row0 is a band's first
+// tile row (0 for a whole image): a band of tile rows composites in place,
+// the counterpart of the JAX band wrapper's shift of uv.y, without its
+// float32 rounding.
 //
 //   power   = -0.5 (a dx^2 + c dy^2) - b dx dy,   dx = px - u, dy = py - v
 //   raw     = op exp(min(power, 0)),  alpha = min(0.99, raw)
@@ -136,7 +140,7 @@ template <int F, bool WITH_COV>
 __global__ void __launch_bounds__(NT)
 composite_fwd_kernel(const int* __restrict__ counts, const float* __restrict__ attrs,
                      const float* __restrict__ bg, float* __restrict__ out,
-                     float* __restrict__ cov, int K, int n_tx) {
+                     float* __restrict__ cov, int K, int n_tx, int row0) {
   constexpr int CA = 6 + F + (WITH_COV ? 1 : 0);
   constexpr int RS = row_stride(CA);
   extern __shared__ float4 smem4[];
@@ -148,7 +152,7 @@ composite_fwd_kernel(const int* __restrict__ counts, const float* __restrict__ a
 
   const int p0 = threadIdx.x * R;  // first pixel of this thread's strip
   const float px0 = (float)((t % n_tx) * TILE + (p0 & (TILE - 1)));
-  const float py = (float)((t / n_tx) * TILE + (p0 >> 4));
+  const float py = (float)((t / n_tx + row0) * TILE + (p0 >> 4));
   float acc[R][F], trans[R], cv[R];
 #pragma unroll
   for (int j = 0; j < R; ++j) {
@@ -224,7 +228,7 @@ template <int F>
 __global__ void __launch_bounds__(NT)
 composite_bwd_kernel(const int* __restrict__ counts, const float* __restrict__ attrs,
                      const float* __restrict__ bg, const float* __restrict__ g,
-                     float* __restrict__ dattrs, int K, int CA, int n_tx) {
+                     float* __restrict__ dattrs, int K, int CA, int n_tx, int row0) {
   constexpr int NV = 6 + F;         // sums per slot
   constexpr int S = 32 / NV;        // slots per butterfly
   constexpr int RS = row_stride(6 + F);
@@ -247,7 +251,7 @@ composite_bwd_kernel(const int* __restrict__ counts, const float* __restrict__ a
 
   const int p0 = tid * R;
   const float px0 = (float)((t % n_tx) * TILE + (p0 & (TILE - 1)));
-  const float py = (float)((t / n_tx) * TILE + (p0 >> 4));
+  const float py = (float)((t / n_tx + row0) * TILE + (p0 >> 4));
   float gp[R][F];
   const float4* g4 = reinterpret_cast<const float4*>(g + ((size_t)t * P_PIX + p0) * F);
 #pragma unroll
@@ -406,25 +410,25 @@ size_t bwd_smem(int K) {
 
 template <int F, bool WITH_COV>
 int launch_fwd(const int* counts, const float* attrs, const float* bg, float* out, float* cov,
-               int T, int K, int n_tx, cudaStream_t stream) {
+               int T, int K, int n_tx, int row0, cudaStream_t stream) {
   const size_t smem = fwd_smem<F, WITH_COV>(K);
   const cudaError_t e = allow_smem(composite_fwd_kernel<F, WITH_COV>, smem);
   if (e != cudaSuccess) return (int)e;
   if (T > 0)
     composite_fwd_kernel<F, WITH_COV><<<T, NT, smem, stream>>>(counts, attrs, bg, out, cov,
-                                                               K, n_tx);
+                                                               K, n_tx, row0);
   return (int)cudaGetLastError();
 }
 
 template <int F>
 int launch_bwd(const int* counts, const float* attrs, const float* bg, const float* g,
-               float* dattrs, int T, int K, int CA, int n_tx, cudaStream_t stream) {
+               float* dattrs, int T, int K, int CA, int n_tx, int row0, cudaStream_t stream) {
   const size_t smem = bwd_smem<F>(K);
   const cudaError_t e = allow_smem(composite_bwd_kernel<F>, smem);
   if (e != cudaSuccess) return (int)e;
   if (T > 0)
     composite_bwd_kernel<F><<<T, NT, smem, stream>>>(counts, attrs, bg, g, dattrs, K, CA,
-                                                     n_tx);
+                                                     n_tx, row0);
   return (int)cudaGetLastError();
 }
 
@@ -473,28 +477,31 @@ int occupancy_all(int K, int* info) {
 
 extern "C" int gflow_composite_fwd(const int* counts, const float* attrs, const float* bg,
                                    float* out, int T, int K, int CA, int F, int n_tx,
-                                   cudaStream_t stream) {
+                                   int row0, cudaStream_t stream) {
   if (bad_shape(T, K, CA, F, 0)) return (int)cudaErrorInvalidValue;
-#define GFLOW_FWD(NF) launch_fwd<NF, false>(counts, attrs, bg, out, nullptr, T, K, n_tx, stream)
+#define GFLOW_FWD(NF) \
+  launch_fwd<NF, false>(counts, attrs, bg, out, nullptr, T, K, n_tx, row0, stream)
   GFLOW_SWITCH_F(F, GFLOW_FWD)
 #undef GFLOW_FWD
 }
 
 extern "C" int gflow_composite_fwd_cov(const int* counts, const float* attrs, const float* bg,
                                        float* out, float* cov, int T, int K, int CA, int F,
-                                       int n_tx, cudaStream_t stream) {
+                                       int n_tx, int row0, cudaStream_t stream) {
   if (bad_shape(T, K, CA, F, 1)) return (int)cudaErrorInvalidValue;
-#define GFLOW_FWD_COV(NF) launch_fwd<NF, true>(counts, attrs, bg, out, cov, T, K, n_tx, stream)
+#define GFLOW_FWD_COV(NF) \
+  launch_fwd<NF, true>(counts, attrs, bg, out, cov, T, K, n_tx, row0, stream)
   GFLOW_SWITCH_F(F, GFLOW_FWD_COV)
 #undef GFLOW_FWD_COV
 }
 
 extern "C" int gflow_composite_bwd(const int* counts, const float* attrs, const float* bg,
                                    const float* g, float* dattrs, int T, int K, int CA, int F,
-                                   int n_tx, cudaStream_t stream) {
+                                   int n_tx, int row0, cudaStream_t stream) {
   if (bad_shape(T, K, CA, F, 0) && bad_shape(T, K, CA, F, 1))
     return (int)cudaErrorInvalidValue;
-#define GFLOW_BWD(NF) launch_bwd<NF>(counts, attrs, bg, g, dattrs, T, K, CA, n_tx, stream)
+#define GFLOW_BWD(NF) \
+  launch_bwd<NF>(counts, attrs, bg, g, dattrs, T, K, CA, n_tx, row0, stream)
   GFLOW_SWITCH_F(F, GFLOW_BWD)
 #undef GFLOW_BWD
 }

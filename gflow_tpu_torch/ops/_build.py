@@ -8,7 +8,8 @@ and an unchanged one is reused. ``build_all`` starts one ``nvcc`` per
 source, all together.
 
 Every C entry point takes its tensors as raw device pointers plus the
-current CUDA stream, launches, and returns ``cudaGetLastError()``;
+current CUDA stream of their device, launches, and returns
+``cudaGetLastError()``;
 ``launch`` raises when that is nonzero and counts the launch in
 ``LAUNCHES``. ``-Xptxas -v`` makes each build report its kernels'
 registers, shared memory and spills (``BUILD_LOGS``). No
@@ -36,11 +37,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel name -> (source file, C symbol, argument types before the stream)
 KERNELS = {
     "composite_fwd": ("composite.cu", "gflow_composite_fwd",
-                      (_P, _P, _P, _P, _I, _I, _I, _I, _I)),
+                      (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I)),
     "composite_fwd_cov": ("composite.cu", "gflow_composite_fwd_cov",
-                          (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I)),
+                          (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I)),
     "composite_bwd": ("composite.cu", "gflow_composite_bwd",
-                      (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I)),
+                      (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I)),
     "bin_tail": ("pack.cu", "gflow_bin_tail", (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I)),
 }
 
@@ -113,12 +114,28 @@ def _function(name: str):
 
 
 def launch(name: str, *args) -> None:
-    """Launch kernel `name` on the current CUDA stream. Tensor arguments go
-    as device pointers, ints as C ints; the caller has checked shapes,
-    dtypes, devices and contiguity. Raises on a nonzero CUDA error code."""
+    """Launch kernel `name` on the current CUDA stream of the device its
+    tensor arguments live on (which need not be the current device). Tensor
+    arguments go as device pointers, ints as C ints; the caller has checked
+    shapes, dtypes and contiguity. Raises if the tensors span devices or on
+    a nonzero CUDA error code."""
+    dev = tensor_device(args)
     fn = _function(name)
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a) for a in args]
-    rc = fn(*cargs, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(dev):
+        rc = fn(*cargs, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
+        raise RuntimeError(f"CUDA kernel {name} failed to launch on {dev}: cudaError {rc}")
     LAUNCHES[name] += 1
+
+
+def tensor_device(args) -> torch.device:
+    """The one CUDA device of the tensors among `args`; raises if there is
+    none, if they span devices or if one lies off the card."""
+    devs = {a.device for a in args if isinstance(a, torch.Tensor)}
+    if len(devs) != 1:
+        raise ValueError(f"a kernel's tensors must lie on one device, got {sorted(map(str, devs))}")
+    (dev,) = devs
+    if dev.type != "cuda":
+        raise ValueError(f"a kernel's tensors must lie on a CUDA device, got {dev}")
+    return dev

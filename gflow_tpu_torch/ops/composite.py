@@ -45,29 +45,30 @@ def blend_tile_block(c_uv, c_conic, c_op, c_feat, c_px, c_py, bg):
     return out + trans[:, -1][:, :, None] * bg[None, None, :]
 
 
-def tile_pixels(T: int, n_tx: int, device):
+def tile_pixels(T: int, n_tx: int, device, row0: int = 0):
     """(T, P) float pixel x / y of every tile's 16x16 block; pixel i of tile
-    t sits at (tx0 + i % 16, ty0 + i // 16), integer coordinates."""
+    t sits at (tx0 + i % 16, ty0 + i // 16), integer coordinates, tile t in
+    tile row t // n_tx + row0 (row0: a band's first tile row)."""
     t = torch.arange(T, device=device)
     i = torch.arange(P_PIX, device=device)
     px = (t % n_tx)[:, None] * TILE + (i % TILE)[None, :]
-    py = torch.div(t, n_tx, rounding_mode="floor")[:, None] * TILE + torch.div(
+    py = (torch.div(t, n_tx, rounding_mode="floor")[:, None] + row0) * TILE + torch.div(
         i, TILE, rounding_mode="floor")[None, :]
     return px.to(torch.float32), py.to(torch.float32)
 
 
-def composite_packed(g_attrs, counts, bg, n_tx: int, with_cov: bool = False):
+def composite_packed(g_attrs, counts, bg, n_tx: int, with_cov: bool = False, row0: int = 0):
     """Plain version of kernels K1 (with_cov False) and K2 (True).
 
     g_attrs (T, K, CA) rows [uv 2, conic 3, opacity 1, feat F (, mov 1)],
-    counts (T,) live rows per tile (<= K), bg (F,). Returns out (T, P, F)
-    and, with_cov, the coverage max_k(alpha_k * mov_k) (T, P, 1), which
-    carries no gradient."""
+    counts (T,) live rows per tile (<= K), bg (F,); the tiles start at tile
+    row row0. Returns out (T, P, F) and, with_cov, the coverage
+    max_k(alpha_k * mov_k) (T, P, 1), which carries no gradient."""
     T, K, CA = g_attrs.shape
     F = CA - 6 - int(with_cov)
     alive = torch.arange(K, device=g_attrs.device)[None, :] < counts[:, None]
     op = torch.where(alive[..., None], g_attrs[..., 5:6], 0.0)
-    px, py = tile_pixels(T, n_tx, g_attrs.device)
+    px, py = tile_pixels(T, n_tx, g_attrs.device, row0)
     out = blend_tile_block(g_attrs[..., 0:2], g_attrs[..., 2:5], op,
                            g_attrs[..., 6:6 + F], px, py, bg)
     if not with_cov:

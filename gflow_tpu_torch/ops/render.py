@@ -7,8 +7,10 @@ channels; the "center" view (identity conic, opacity 1) reuses the same
 tile lists; ``render_traj`` draws a trajectory line set with a scaled
 identity conic. Images are channels-last (H, W, C). The device of the
 inputs picks the compositor: the CUDA kernels for CUDA tensors, the plain
-PyTorch versions for CPU tensors. Host callers (the trainer) call these
-under ``torch.no_grad()``.
+PyTorch versions for CPU tensors. A config with ``band_devices`` (set by
+``for_scene`` inside ``parallel.mesh.use_mesh``) composites through the
+band wrappers, one band of tile rows per device. Host callers (the
+trainer) call these under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..parallel.mesh import ambient_tile_devices
 from ..viz.colormap import apply_float_colormap
 from . import cuda_raster
 from .binning import bin_gaussians, tile_grid
@@ -36,6 +39,8 @@ class RenderConfig:
     # get the full grid (largest area first). 0 = single-class.
     small_tiles_per_gaussian: int = 0
     large_frac: float = 0.125
+    # the tile-band mode: one band of tile rows per device (None: unbanded)
+    band_devices: tuple | None = None
 
     @classmethod
     def for_scene(cls, W: int, H: int, num_points: int, image=None) -> "RenderConfig":
@@ -45,7 +50,8 @@ class RenderConfig:
         median(p)) under the gradient-importance init distribution p (the
         uniform sqrt(W*H/N) without an image). M=8 takes K=96, wider grids
         K=128 with two-class emission. Calibration: gflow_tpu/ops/render.py
-        and M_QUALITY.json / K_QUALITY.json."""
+        and M_QUALITY.json / K_QUALITY.json. Inside ``use_mesh`` the config
+        bands over the mesh's devices (ambient_tile_devices)."""
         spacing = math.sqrt(W * H / max(num_points, 1))
         if image is not None:
             from ..core.sampling import gradient_probability_map
@@ -54,13 +60,15 @@ class RenderConfig:
                 np.asarray(image, np.float32))))
             spacing = 1.0 / math.sqrt(max(num_points * p_med, 1e-12))
         need = 2.5 * spacing
+        bands = ambient_tile_devices()
         for m in (8, 12, 16, 48):
             if supported_max_radius(m) >= need:
                 return cls(max_per_tile=96 if m == 8 else 128,
                            max_tiles_per_gaussian=m,
-                           small_tiles_per_gaussian=0 if m == 8 else 8)
+                           small_tiles_per_gaussian=0 if m == 8 else 8,
+                           band_devices=bands)
         return cls(max_per_tile=128, max_tiles_per_gaussian=64,
-                   small_tiles_per_gaussian=8)
+                   small_tiles_per_gaussian=8, band_devices=bands)
 
 
 DEFAULT_CONFIG = RenderConfig()
@@ -74,6 +82,30 @@ def bin_with(config: RenderConfig, uv, depth, radius, W: int, H: int):
         small_tiles_per_gaussian=config.small_tiles_per_gaussian,
         large_frac=config.large_frac,
     )
+
+
+def composite(config: RenderConfig, tile_lists, uv, conic, opacity, features, bg, W: int,
+              H: int, n_tx: int, n_ty: int, tile_counts=None):
+    """The tile compositor `config` asks for: banded over its band_devices,
+    or in one piece (the JAX package's ``_get_compositor``)."""
+    if config.band_devices:
+        return cuda_raster.composite_tiles_kernel_sharded(
+            tile_lists, uv, conic, opacity, features, bg, W, H, n_tx, n_ty,
+            config.band_devices, tile_counts=tile_counts)
+    return cuda_raster.composite_tiles_kernel(tile_lists, uv, conic, opacity, features, bg,
+                                              W, H, n_tx, n_ty, tile_counts=tile_counts)
+
+
+def composite_with_coverage(config: RenderConfig, tile_lists, uv, conic, opacity, features,
+                            mov, bg, W: int, H: int, n_tx: int, n_ty: int, tile_counts=None):
+    """The coverage compositor `config` asks for, banded or in one piece."""
+    if config.band_devices:
+        return cuda_raster.composite_with_coverage_kernel_sharded(
+            tile_lists, uv, conic, opacity, features, mov, bg, W, H, n_tx, n_ty,
+            config.band_devices, tile_counts=tile_counts)
+    return cuda_raster.composite_with_coverage_kernel(
+        tile_lists, uv, conic, opacity, features, mov, bg, W, H, n_tx, n_ty,
+        tile_counts=tile_counts)
 
 
 def render(xyz, scale, rotate, opacity, rgb, intr, extr, bg, W: int, H: int,
@@ -132,9 +164,8 @@ def render(xyz, scale, rotate, opacity, rgb, intr, extr, bg, W: int, H: int,
         bg_vec = torch.full((cursor,), float(bg), dtype=torch.float32, device=dev)
         if "acc" in slices:
             bg_vec[slices["acc"][0]] = 0.0
-        img = cuda_raster.composite_tiles_kernel(
-            bins.tile_lists, uv, conic, opacity, torch.cat(feats, dim=1), bg_vec,
-            W, H, n_tx, n_ty, tile_counts=bins.tile_counts)
+        img = composite(config, bins.tile_lists, uv, conic, opacity, torch.cat(feats, dim=1),
+                        bg_vec, W, H, n_tx, n_ty, tile_counts=bins.tile_counts)
         for name, (s, e) in slices.items():
             out[name] = img[..., s:e]
         if "acc" in out:
@@ -145,9 +176,8 @@ def render(xyz, scale, rotate, opacity, rgb, intr, extr, bg, W: int, H: int,
         # (dead capacity slots) stay invisible
         center_conic = torch.tensor([1.0, 0.0, 1.0], device=dev).expand_as(conic)
         center_op = ((depth > 0) & (opacity > 0)).to(torch.float32)
-        out["center"] = cuda_raster.composite_tiles_kernel(
-            bins.tile_lists, uv, center_conic, center_op, rgb, bg, W, H, n_tx,
-            n_ty, tile_counts=bins.tile_counts)
+        out["center"] = composite(config, bins.tile_lists, uv, center_conic, center_op, rgb,
+                                  bg, W, H, n_tx, n_ty, tile_counts=bins.tile_counts)
 
     if as_uint8:
         for name in ("rgb", "depth_map_color", "center", "acc"):
@@ -187,9 +217,8 @@ def render_traj(xyz, scale, rotate, opacity, rgb, intr, extr, bg, W: int, H: int
     scale_per_pt = torch.where(torch.arange(n, device=dev) < cutoff, point_scale,
                                line_scale)[:, None]
     conic = torch.tensor([1.0, 0.0, 1.0], device=dev) * scale_per_pt
-    return cuda_raster.composite_tiles_kernel(
-        bins.tile_lists, proj["uv"], conic, opacity, rgb, bg, W, H, n_tx, n_ty,
-        tile_counts=bins.tile_counts)
+    return composite(config, bins.tile_lists, proj["uv"], conic, opacity, rgb, bg, W, H, n_tx,
+                     n_ty, tile_counts=bins.tile_counts)
 
 
 def render2img(rendered: torch.Tensor) -> np.ndarray:

@@ -5,7 +5,9 @@ Counterpart of ``gflow_tpu/opt/train.py``: a Python loop of render ->
 loss -> backward -> gated Adam. Each iteration composites one fused
 rgb+depth feature pass; the camera-only stage adds the moving-Gaussian
 coverage as a second output of the same compositor pass (kernel K2 on
-CUDA). Three variants, as in the JAX package:
+CUDA). With ``cfg.render.band_devices`` both composite in bands of tile
+rows, one per device (the tile-band fitting mode, ``parallel/mesh.py``).
+Three variants, as in the JAX package:
 
 - the lean path (``snapshot_every == 0``): densify after the iteration
   that the static schedule names, the error map from one extra forward at
@@ -32,10 +34,10 @@ import torch
 from .. import resolve_device
 from ..core.camera import pix2world, pose_to_extr
 from ..core.scene import OPACITY_SENSITIVITY
-from ..ops import cuda_raster
 from ..ops.binning import tile_grid
 from ..ops.projection import TILE, project_gaussians, supported_max_radius
-from ..ops.render import DEFAULT_CONFIG, RenderConfig, bin_with, render
+from ..ops.render import (DEFAULT_CONFIG, RenderConfig, bin_with, composite,
+                          composite_with_coverage, render)
 from ..viz.colormap import apply_float_colormap
 from .densify import densify_by_pixels, reset_opt_after_densify
 from .losses import LossWeights, compute_losses, flow_prior_terms
@@ -126,14 +128,13 @@ def _forward(params: Params, n_alive, state: FrameState, targets: Targets, intr,
         # frame's moving Gaussians (trainer.py:427-451)
         slot = torch.arange(params.capacity, device=uv.device)
         mov = ((slot < state.last_num) & ~state.still_mask_tentative)[:, None]
-        img, cov = cuda_raster.composite_with_coverage_kernel(
-            bins.tile_lists, uv, conic, opacity, feats, mov.to(torch.float32),
+        img, cov = composite_with_coverage(
+            cfg.render, bins.tile_lists, uv, conic, opacity, feats, mov.to(torch.float32),
             cfg.bg, cfg.W, cfg.H, n_tx, n_ty, tile_counts=bins.tile_counts)
         move_mask = move_mask | (cov[..., 0] > 0)
     else:
-        img = cuda_raster.composite_tiles_kernel(
-            bins.tile_lists, uv, conic, opacity, feats, cfg.bg, cfg.W, cfg.H,
-            n_tx, n_ty, tile_counts=bins.tile_counts)
+        img = composite(cfg.render, bins.tile_lists, uv, conic, opacity, feats, cfg.bg,
+                        cfg.W, cfg.H, n_tx, n_ty, tile_counts=bins.tile_counts)
     rendered_rgb = img[..., :3]
     rendered_depth = img[..., 3:4]
 
@@ -363,6 +364,11 @@ def train_stage(params: Params, state: FrameState, targets: Targets, intr,
                                targets.move_mask, n_alive, cfg.W, cfg.H)
     else:
         state = state._replace(n_alive=n_alive)
+    # The JAX stage pins its outputs replicated in the tile-sharded mode
+    # (gflow_tpu/opt/train.py:621-632). Nothing here needs that: with
+    # cfg.render.band_devices only the band composite leaves the stage's
+    # device, and its images come back to it, so every output is already
+    # on `dev`.
     info = {
         "metrics": metrics,
         "loss_trace": torch.stack(losses) if losses else torch.zeros(0, device=dev),

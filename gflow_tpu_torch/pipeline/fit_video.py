@@ -6,7 +6,9 @@ optional camera-only stage and a full stage, trajectory query selection
 over the still/move segmentation, 13 diagnostic videos, trajectory
 pickles and TrajVisualizer overlays, written to the trainer's log
 directory, which ``gflow_tpu.eval.benchmark`` reads. Runs on ``cuda``
-unless the caller passes ``device="cpu"``. CLI:
+unless the caller passes ``device="cpu"``; ``shard_devices=N`` composites
+every stage in N bands of tile rows, one per device (N cards, or N bands
+on the CPU with ``device="cpu"``). CLI:
 ``python -m gflow_tpu_torch.cli.fit_video``.
 """
 from __future__ import annotations
@@ -71,10 +73,16 @@ def main(
     rebin_every: int = 1,
     device: Optional[str] = None,
 ):
+    # the tile-band fitting mode: re-enter under a ("tile",) mesh of
+    # shard_devices devices; every stage's RenderConfig.for_scene then
+    # composites in one band of tile rows per device (parallel/mesh.py)
     if shard_devices:
-        raise NotImplementedError(
-            "the tile-sharded multi-GPU fitting mode (shard_devices) waits for "
-            "the multi-GPU slice (ROADMAP, Queue 1)")
+        kwargs = dict(locals())
+        kwargs["shard_devices"] = 0
+        from ..parallel.mesh import fitting_mesh, use_mesh
+
+        with use_mesh(fitting_mesh(shard_devices, device)):
+            return main(**kwargs)
 
     files = gio.list_sequence_files(
         sequence_path, frame_start=frame_start, frame_range=frame_range,

@@ -12,7 +12,9 @@ Counterpart of ``gflow_tpu/pipeline/prep_depth.py``. The weights are a
 released MASt3R/DUSt3R ``.pth`` or the JAX package's converted ``.npz``
 (``--checkpoint`` or ``$GFLOW_MAST3R_WEIGHTS``); without them it raises
 ``FileNotFoundError``. Inference and the alignment's refinement run on
-``cuda`` unless the caller passes ``device="cpu"``.
+``cuda`` unless the caller passes ``device="cpu"``; ``mesh_devices=N``
+batches N pairs at a time, one on each of N devices
+(``parallel.sharded_batch_apply``).
 
 As in the JAX module, frames are resized for inference with the short
 side to `inference_size` (512: a 854x480 frame runs at 911x512, 1824
@@ -33,7 +35,7 @@ from .. import resolve_device
 from ..core.io import imwrite, load_image, resize_to, write_camera
 from ..models.mast3r import Mast3rModel, convert, global_align, make_pairs_logwin
 from ..viz.colormap import colormap_lookup, print_color
-from .prep_flow import MULTI_GPU, list_frames
+from .prep_flow import batch_runner, list_frames
 
 CKPT_ENV = "GFLOW_MAST3R_WEIGHTS"
 
@@ -66,9 +68,6 @@ def main(img_dir: str, checkpoint: Optional[str] = None, inference_size: int = 5
          device: Optional[str] = None, model=None, params=None):
     """model (a Mast3rModel with its weights) or params (a released-key
     state dict) are injectable, as in the JAX package's tests."""
-    if mesh_devices:
-        raise NotImplementedError(
-            f"mesh_devices (pair-graph edges sharded across devices) waits for {MULTI_GPU}")
     if model is None:
         if params is None:
             params = load_weights(checkpoint)
@@ -81,6 +80,7 @@ def main(img_dir: str, checkpoint: Optional[str] = None, inference_size: int = 5
         model.load_state_dict(params, strict=True)
     dev = resolve_device(device)
     model = model.to(dev).eval()
+    run_batch, B = batch_runner(model, mesh_devices, dev)
 
     img_dir = str(img_dir)
     depth_dir = img_dir + "_depth_mast3r_s2"
@@ -98,13 +98,18 @@ def main(img_dir: str, checkpoint: Optional[str] = None, inference_size: int = 5
         ratio = load_image(chunk[0]).shape[1] / W  # inference-to-original focal and pp
 
         edge_preds = {}
+        pairs = make_pairs_logwin(len(chunk), winsize)
         with torch.inference_mode():
-            for i, j in make_pairs_logwin(len(chunk), winsize):
-                o1, o2 = model(imgs[i], imgs[j])
-                # the alignment reads pts3d and conf only
-                edge_preds[(i, j)] = tuple({k: o[k][0].cpu().numpy() for k in ("pts3d", "conf")}
-                                           for o in (o1, o2))
-                print_color(f"[mast3r] pair ({c0 + i},{c0 + j}) done")
+            for e0 in range(0, len(pairs), B):
+                batch = pairs[e0:e0 + B]
+                batch += batch[-1:] * (B - len(batch))  # pad the tail batch; dropped below
+                o1, o2 = run_batch(torch.cat([imgs[i] for i, _ in batch]),
+                                   torch.cat([imgs[j] for _, j in batch]))
+                for bi, (i, j) in enumerate(pairs[e0:e0 + B]):
+                    # the alignment reads pts3d and conf only
+                    edge_preds[(i, j)] = tuple(
+                        {k: o[k][bi].cpu().numpy() for k in ("pts3d", "conf")} for o in (o1, o2))
+                    print_color(f"[mast3r] pair ({c0 + i},{c0 + j}) done")
 
         res = global_align(edge_preds, len(chunk), (H, W), device=dev)
         for f, p in enumerate(chunk):

@@ -9,7 +9,9 @@ released UniMatch ``.pth`` or the JAX package's converted ``.npz``
 (``--checkpoint`` or ``$GFLOW_UNIMATCH_WEIGHTS``;
 ``models.unimatch.convert.load_weights``); without them it raises
 ``FileNotFoundError``. Inference runs on ``cuda`` unless the caller passes
-``device="cpu"``, under ``torch.inference_mode()``, in fp32. CLI:
+``device="cpu"``, under ``torch.inference_mode()``, in fp32;
+``mesh_devices=N`` batches N directed pairs at a time, one on each of N
+devices (``parallel.sharded_batch_apply``). CLI:
 ``python -m gflow_tpu_torch.cli.prep_flow``.
 """
 from __future__ import annotations
@@ -27,8 +29,6 @@ from ..models.unimatch import GMFlow, convert, forward_backward_consistency
 from ..viz.colormap import print_color
 
 CKPT_ENV = "GFLOW_UNIMATCH_WEIGHTS"
-# where the device-mesh modes of the JAX package are to be ported
-MULTI_GPU = "the multi-GPU slice (ROADMAP, Queue 1)"
 
 
 def load_weights(path=None) -> dict | None:
@@ -51,9 +51,6 @@ def main(img_dir: str, checkpoint: Optional[str] = None, resize: Optional[int] =
          model=None, params=None):
     """model (a GMFlow with its weights) or params (a released-key state
     dict) are injectable, as in the JAX package's tests."""
-    if mesh_devices:
-        raise NotImplementedError(
-            f"mesh_devices (pairs sharded across devices) waits for {MULTI_GPU}")
     if model is None:
         if params is None:
             params = load_weights(checkpoint)
@@ -66,6 +63,7 @@ def main(img_dir: str, checkpoint: Optional[str] = None, resize: Optional[int] =
         model.load_state_dict(params, strict=True)
     dev = resolve_device(device)
     model = model.to(dev).eval()
+    run_batch, B = batch_runner(model, mesh_devices, dev)
 
     out_dir = str(img_dir) + "_flow_unimatch"
     os.makedirs(out_dir, exist_ok=True)
@@ -78,10 +76,21 @@ def main(img_dir: str, checkpoint: Optional[str] = None, resize: Optional[int] =
 
     with torch.inference_mode():
         frames = [pad_to(load_image(p, resize=resize)) for p in paths]
+        # directed jobs (pair, direction): fwd and bwd of a pair are
+        # independent inferences, batched B at a time across the mesh
+        jobs = [(i, d) for i in range(len(paths) - 1) for d in (0, 1)]
+        flows = {}
+        for c0 in range(0, len(jobs), B):
+            chunk = jobs[c0:c0 + B]
+            chunk += chunk[-1:] * (B - len(chunk))  # pad the tail batch; dropped below
+            a = torch.cat([frames[i + d][0] for i, d in chunk])
+            b = torch.cat([frames[i + 1 - d][0] for i, d in chunk])
+            out = run_batch(a, b)
+            for k, job in enumerate(jobs[c0:c0 + B]):
+                H, W = frames[job[0]][1]
+                flows[job] = out[k:k + 1, :H, :W]
         for i in range(len(paths) - 1):
-            (a, (H, W)), (b, _) = frames[i], frames[i + 1]
-            fwd = model(a, b)[:, :H, :W]
-            bwd = model(b, a)[:, :H, :W]
+            fwd, bwd = flows[(i, 0)], flows[(i, 1)]
             _, occ_b = forward_backward_consistency(fwd, bwd)
             fwd, bwd = fwd[0].cpu().numpy(), bwd[0].cpu().numpy()
             name = os.path.splitext(os.path.basename(paths[i]))[0]
@@ -91,3 +100,16 @@ def main(img_dir: str, checkpoint: Optional[str] = None, resize: Optional[int] =
                     (occ_b[0].cpu().numpy() * 255).astype(np.uint8))
             print_color(f"[flow] {name}: |flow| mean {np.abs(fwd).mean():.2f}")
     return out_dir
+
+
+def batch_runner(model, mesh_devices: int, device):
+    """(run, B): the model itself with batch 1, or with mesh_devices > 0 a
+    sharded_batch_apply of it over a ("data",) mesh of that many devices
+    of device's kind (parallel.make_mesh: cards must be visible), batch
+    mesh_devices."""
+    if not mesh_devices:
+        return model, 1
+    from ..parallel.mesh import make_mesh, sharded_batch_apply
+
+    mesh = make_mesh(mesh_devices, data_parallel=mesh_devices, device=device.type)
+    return sharded_batch_apply(model, mesh), mesh.shape["data"]

@@ -7,7 +7,8 @@ in one process, in turns: baseline, change, change, baseline.
 parent commit unpacked with `git archive` into a git-ignored directory);
 its `gflow_tpu_torch/csrc/composite.cu` is built with the same nvcc flags
 as this checkout's. Both libraries are called through the same C entry
-points on the same inputs: chip_smoke.py's synthetic packed inputs, the
+points (with the tile-row offset row0 = 0, so the baseline is a tree from
+the commit that added row0 on) on the same inputs: chip_smoke.py's synthetic packed inputs, the
 same with every tile at the mean count ("synthetic even"), and the main
 path's own packed input (first iteration of each stage of the canonical
 frame; the full stage's also at its mean count), at K = 96 and 192. For each kernel and input the script
@@ -50,11 +51,11 @@ def compare(libs, attrs, counts, bg, n_tx, with_cov, g, where, K):
 
     def fwd(tag):
         out, cov, _ = outs[tag]
-        args = [counts, attrs, bg, out] + ([cov] if with_cov else []) + [T, K, CA, F, n_tx]
+        args = [counts, attrs, bg, out] + ([cov] if with_cov else []) + [T, K, CA, F, n_tx, 0]
         libs[tag][fwd_name](*args)
 
     def bwd(tag):
-        libs[tag]["composite_bwd"](counts, attrs, bg, g, outs[tag][2], T, K, CA, F, n_tx)
+        libs[tag]["composite_bwd"](counts, attrs, bg, g, outs[tag][2], T, K, CA, F, n_tx, 0)
 
     rows = []
     for name, fn in ((fwd_name, fwd), ("composite_bwd", bwd)):

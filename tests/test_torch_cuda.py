@@ -499,3 +499,95 @@ def test_epipolar_on_the_card_matches_the_cpu(dev):
     np.testing.assert_allclose(got, want, atol=1e-3)
     np.testing.assert_array_equal(got > 0.01, want > 0.01)
     assert (got[block] > 0.01).all() and (got > 0.01).mean() < 0.1
+
+
+def two_cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 GPUs: a launch on a card that is not the current one")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def test_launch_on_a_card_that_is_not_current(dev):
+    """K1 and K3 on tensors on cuda:1 while cuda:0 is current launch on
+    cuda:1's stream and equal the same calls made with cuda:1 current; a
+    launch whose tensors span two cards raises."""
+    c0, c1 = two_cards()
+    attrs, counts, bg = packed(c1, seed=4)
+    g = torch.randn(attrs.shape[0], 256, 4, device=c1)
+    with torch.cuda.device(c1):
+        want = (cuda_raster.composite_fwd(attrs, counts, bg, 4),
+                cuda_raster.composite_bwd(attrs, counts, bg, g, 4))
+    with torch.cuda.device(c0):
+        got = (cuda_raster.composite_fwd(attrs, counts, bg, 4),
+               cuda_raster.composite_bwd(attrs, counts, bg, g, 4))
+        torch.cuda.synchronize(c1)
+    assert got[0].device == c1 and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[0], composite.composite_packed(attrs, counts, bg, 4),
+                               atol=5e-4, rtol=1e-3)
+    with pytest.raises(ValueError, match="one device"):
+        _build.launch("composite_fwd", counts, attrs.to(c0), bg, attrs, 1, 1, 1, 1, 1)
+
+
+def test_sharded_batch_apply_over_two_cards(dev):
+    """One replica per card (the second a copy), chunks back on the first."""
+    from gflow_tpu_torch.parallel.mesh import make_mesh, sharded_batch_apply
+
+    c0, c1 = two_cards()
+    model = torch.nn.Conv2d(3, 5, 3, padding=1).to(c0).eval()
+    run = sharded_batch_apply(model, make_mesh(2, data_parallel=2, device="cuda"))
+    assert run.devices == (c0, c1)
+    x = torch.randn(4, 3, 16, 12, device=c0)
+    with torch.inference_mode():
+        got, want = run(x), model(x)
+    assert got.device == c0
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("with_cov", [False, True])
+def test_band_compositor_matches_unbanded_kernel(dev, with_cov):
+    """The band wrappers on 4 bands (over the visible cards, round robin)
+    against the unbanded kernel call on the same per-Gaussian inputs, at
+    80x48 (3 tile rows: the fourth band is padding): images and coverage
+    atol 5e-4 / rtol 1e-3, gradients normalized by max |ref| 5e-4; K1 or
+    K2 and K3 launch once per band."""
+    from gflow_tpu_torch.ops.binning import bin_gaussians, tile_grid
+    from gflow_tpu_torch.ops.projection import project_gaussians
+
+    Wd, Hd, n = 80, 48, 300
+    rng = np.random.default_rng(5)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    xyz = t(np.c_[rng.uniform(-1, 1, (n, 2)), rng.uniform(2, 6, (n, 1))])
+    proj = project_gaussians(xyz, t(rng.uniform(0.02, 0.1, (n, 3))), t(rng.normal(size=(n, 4))),
+                             t([40.0, 40.0, Wd / 2, Hd / 2]), torch.eye(3, 4, device=dev), Wd, Hd)
+    bins = bin_gaussians(proj["uv"], proj["depth"], proj["radius"], Wd, Hd, 64, 16)
+    n_tx, n_ty = tile_grid(Wd, Hd)
+    base = [proj["uv"], proj["conic"], t(rng.uniform(0.2, 0.9, (n, 1))), t(rng.uniform(0, 1, (n, 3)))]
+    if with_cov:
+        base.append(t(rng.uniform(size=(n, 1)) < 0.4))
+    bands = tuple(torch.device("cuda", b % torch.cuda.device_count()) for b in range(4))
+    G = torch.randn(Hd, Wd, 3, device=dev)
+    outs = []
+    for banded in (True, False):
+        xs = [x.detach().clone().requires_grad_(i < 4) for i, x in enumerate(base)]
+        args = (bins.tile_lists, *xs, 0.3, Wd, Hd, n_tx, n_ty)
+        _build.LAUNCHES.clear()
+        if with_cov:
+            fn = (cuda_raster.composite_with_coverage_kernel_sharded if banded
+                  else cuda_raster.composite_with_coverage_kernel)
+            img, cov = fn(*args, *((bands,) if banded else ()), tile_counts=bins.tile_counts)
+        else:
+            fn = (cuda_raster.composite_tiles_kernel_sharded if banded
+                  else cuda_raster.composite_tiles_kernel)
+            img, cov = fn(*args, *((bands,) if banded else ()), tile_counts=bins.tile_counts), None
+        grads = torch.autograd.grad((img * G).sum(), xs[:4])
+        torch.cuda.synchronize()
+        outs.append((img, cov, grads, dict(_build.LAUNCHES)))
+    (img_b, cov_b, g_b, l_b), (img_u, cov_u, g_u, l_u) = outs
+    assert img_b.device == img_u.device == bins.tile_lists.device and img_b.shape == (Hd, Wd, 3)
+    torch.testing.assert_close(img_b, img_u, atol=5e-4, rtol=1e-3)
+    if with_cov:
+        torch.testing.assert_close(cov_b, cov_u, atol=5e-4, rtol=1e-3)
+    for gb, gu in zip(g_b, g_u):
+        assert float(((gb - gu) / gu.abs().max()).abs().max()) <= 5e-4
+    fwd = "composite_fwd_cov" if with_cov else "composite_fwd"
+    assert l_b == {fwd: 4, "composite_bwd": 4} and l_u == {fwd: 1, "composite_bwd": 1}

@@ -4,12 +4,14 @@ benchmark: gflow_tpu_torch.pipeline.fit_video.main(device="cpu") on a
 camera-only stages, trajectory queries and the frame-0 snapshot videos;
 then gflow_tpu.eval.benchmark.main computes PSNR, SSIM, OA, AJ and ATE from
 the port's log directory, held to the thresholds of
-tests/test_fit_video.py. Also the CLI, and the options the port refuses."""
+tests/test_fit_video.py. Also the tile-band mode (shard_devices=4 on the
+CPU) against the unbanded fit, the CLI, and the absent card."""
 import os
 import pickle
 
 import numpy as np
 import pytest
+import torch
 
 from gflow_tpu.eval.benchmark import main as bench_main
 from gflow_tpu_torch.pipeline.fit_video import main as fit_main
@@ -78,14 +80,35 @@ def test_cli_runs_on_the_cpu(tmp_path):
 
 
 def test_refused_options(tmp_path, monkeypatch):
-    import torch
-
     seq = make_sequence(tmp_path, n_frames=2, W=48, H=32)
-    with pytest.raises(NotImplementedError, match=r"multi-GPU slice \(ROADMAP, Queue 1\)"):
-        fit_main(sequence_path=seq, shard_devices=2, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fit_main(sequence_path=seq, num_points=50, logs_suffix=str(tmp_path / "logs"))
+
+
+def test_shard_devices_bands_the_fit(run, tmp_path_factory):
+    """fit_video(shard_devices=4, device="cpu"): every stage composites in 4
+    bands of tile rows (64 px high: 4 rows of 16, one band each), writes
+    the usual log directory, and fits as the unbanded run does: the same
+    code on the same inputs but for the bands' uv.y shift, so checkpoint
+    arrays within atol 1e-4 and the final PSNR within 0.01 dB."""
+    trainer, seq = run
+    banded = fit_main(sequence_path=seq, device="cpu", shard_devices=4,
+                      logs_suffix=str(tmp_path_factory.mktemp("banded") / "logs"), **FIT)
+    assert banded.render_config.band_devices == (torch.device("cpu"),) * 4
+    assert trainer.render_config.band_devices is None
+    ckpts = sorted(os.listdir(os.path.join(trainer.dir, "ckpt")))
+    assert sorted(os.listdir(os.path.join(banded.dir, "ckpt"))) == ckpts and len(ckpts) == 3
+    for c in ckpts:
+        got, want = (np.load(os.path.join(t.dir, "ckpt", c)) for t in (banded, trainer))
+        for k in want.files:
+            np.testing.assert_allclose(got[k], want[k], atol=1e-4, rtol=0, err_msg=f"{c} {k}")
+    for name in ("sequence", "sequence_traj"):
+        assert any(os.path.exists(os.path.join(banded.dir, f"{name}{ext}"))
+                   for ext in (".mp4", ".avi")), name
+    psnr = [-10 * np.log10(np.mean((t.render_views(("rgb",))["rgb"].numpy() - t.gt_image) ** 2))
+            for t in (banded, trainer)]
+    assert abs(psnr[0] - psnr[1]) < 0.01, psnr
 
 
 @pytest.mark.slow

@@ -6,7 +6,9 @@ graph and the full 500 + 200-step alignment.
 
 Also 44x60 frames (no multiple of the patch: both models pad as 'SAME'),
 the CLI through --checkpoint (.pth and the JAX package's .npz), the
-output schema, and the depth resized back to exactly the frame's size.
+output schema, the depth resized back to exactly the frame's size, and
+mesh_devices (pairs batched over 4 CPU replicas) against the unbatched
+run.
 
 Tolerances (the model outputs agree to ~1e-6, tests/test_torch_mast3r.py,
 then 700 Adam steps run in each package): depth and pts3d .npy rtol 1e-3,
@@ -125,6 +127,29 @@ def test_cli_reads_pth_and_npz(tmp_path, monkeypatch):
     monkeypatch.delenv(prep_depth.CKPT_ENV)
     with pytest.raises(FileNotFoundError, match="GFLOW_MAST3R_WEIGHTS"):
         prep_depth.main(a, device="cpu")
+
+
+def test_mesh_devices_match_single(tmp_path):
+    """mesh_devices=4 (4 CPU replicas; the logwin-2 graph's pairs in
+    batches of 4, the tail batch padded and its padding dropped) against
+    mesh_devices=0: depth within rtol 2e-3 / atol 2e-3
+    (tests/test_sharded_infer.py:83), cameras within the module's
+    tolerances."""
+    _, _, model = tiny("linear")
+    d0, d4 = write_frames(tmp_path / "single", n=5), write_frames(tmp_path / "mesh", n=5)
+    prep_depth.main(d0, model=model, inference_size=48, winsize=2, mesh_devices=0,
+                    device="cpu")
+    prep_depth.main(d4, model=model, inference_size=48, winsize=2, mesh_devices=4,
+                    device="cpu")
+    deps = files(d0, DIRS[0])
+    assert len(deps) == 10
+    for a, b in zip(files(d4, DIRS[0]), deps):
+        if a.endswith(".npy"):
+            np.testing.assert_allclose(np.load(a), np.load(b), rtol=2e-3, atol=2e-3)
+    for a, b in zip(files(d4, DIRS[2]), files(d0, DIRS[2])):
+        ga, gb = (json.load(open(p)) for p in (a, b))
+        assert ga["focal"] == pytest.approx(gb["focal"], rel=1e-4)
+        np.testing.assert_allclose(ga["pose"], gb["pose"], atol=1e-3)
 
 
 def test_depth_goes_back_to_the_frame_size():

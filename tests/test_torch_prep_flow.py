@@ -4,7 +4,8 @@ JAX package's main on the CPU, on a 4-frame 48x64 sequence (padded to
 splits (2, 4)) and one seeded released-layout state dict (the JAX model
 takes it through convert_state_dict). Also the CLI, through --checkpoint
 with a released-layout .pth and with the JAX package's .npz, the missing
-weights error and the multi-GPU messages.
+weights error, and mesh_devices (pairs batched over 4 CPU replicas)
+against the unbatched run.
 
 Tolerances: .flo values atol 5e-4 / rtol 1e-3 (tests/test_torch_gmflow.py);
 the occlusion PNGs equal, but for pixels whose consistency test sits
@@ -126,18 +127,20 @@ def test_missing_weights_and_multi_gpu_raise(tmp_path, monkeypatch):
         prep_flow.main(d, device="cpu")
     with pytest.raises(FileNotFoundError):
         prep_flow.main(d, checkpoint=str(tmp_path / "absent.pth"), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"multi-GPU slice \(ROADMAP, Queue 1\)"):
-        prep_flow.main(d, mesh_devices=2, device="cpu")
 
 
-def test_multi_gpu_messages_name_the_slice(tmp_path):
-    """fit_video's shard_devices and the prep stages' mesh_devices name the
-    slice that ports them, not an item number of the roadmap."""
-    from gflow_tpu_torch.pipeline import fit_video, prep_depth
-
-    for run in (lambda: fit_video.main(sequence_path=tmp_path, shard_devices=2, device="cpu"),
-                lambda: prep_depth.main(str(tmp_path), mesh_devices=4, device="cpu")):
-        with pytest.raises(NotImplementedError) as err:
-            run()
-        assert "the multi-GPU slice (ROADMAP, Queue 1)" in str(err.value)
-        assert "item" not in str(err.value)
+def test_mesh_devices_match_single(tmp_path, weights):
+    """mesh_devices=4 (4 CPU replicas, 6 directed pairs in batches of 4:
+    the tail batch padded and its padding dropped) against mesh_devices=0:
+    flows within 2e-4 (tests/test_sharded_infer.py:52), occlusions equal."""
+    d0, d4 = write_frames(tmp_path / "single"), write_frames(tmp_path / "mesh")
+    prep_flow.main(d0, model=tiny_model(weights), mesh_devices=0, device="cpu")
+    prep_flow.main(d4, model=tiny_model(weights), mesh_devices=4, device="cpu")
+    names = outputs(d0)
+    assert names == outputs(d4) and len(names) == 9
+    for name in names:
+        a, b = (os.path.join(d + "_flow_unimatch", name) for d in (d4, d0))
+        if name.endswith(".flo"):
+            np.testing.assert_allclose(read_flow(a), read_flow(b), atol=2e-4)
+        else:
+            np.testing.assert_array_equal(imread(a), imread(b))

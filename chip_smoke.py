@@ -18,11 +18,15 @@
    (854x480, 50,000 points, capacity 51,200, seed 0, M=8 / K=96) — with
    the launch counters reset just before and read just after: a short
    camera-only stage, a full stage with an occluded-region densify and one
-   error densify, and the next frame's camera-only stage; checks the loss
-   falls, n_alive grows by the expected count, every kernel launched, and
+   error densify, and the next frame's camera-only stage, each stage as
+   CUDA graphs (the default); checks the loss falls, n_alive grows by the
+   expected count, every kernel launched, inside graph replays too, and
    the first iteration's gradients of every parameter leaf (both stages),
    the loss trajectory and a multi-output render match the same run on
-   the plain PyTorch versions (also on the card);
+   the plain PyTorch versions (also on the card); then holds those stages,
+   a rebin_every=4 and a snapshot_every=5 stage as graphs against the
+   same stages eager (opt.graphs.disable_graphs): 0 apart, the same
+   launch counts;
 5. drives the port's fit_video (gflow_tpu_torch.pipeline.fit_video.main)
    on a synthetic 4-frame sequence at 854x480 (tests/synth.py's static
    camera layout, JPEG frames, 3 frames fitted) with 50,000 points, the
@@ -70,9 +74,11 @@
    fit_video(shard_devices=count) end to end;
 9. times one frame at the canonical budget (150 camera + 300 full
    iterations, occ densify at 0 and error densify every 100 x2) after one
-   warm-up frame; profiles a 20-iteration full stage (its Chrome trace
-   written to logs/chip_smoke/profile/trace.json) and, alone, the binning
-   layer (bin_gaussians) on each stage's first-iteration input;
+   warm-up frame, as CUDA graphs and eager in turns; profiles a
+   20-iteration full stage, graphed and eager (device kernels and graph
+   launches per iteration, idle share; Chrome traces written to
+   logs/chip_smoke/profile/{graphed,eager}/trace.json) and, alone, the
+   binning layer (bin_gaussians) on each stage's first-iteration input;
 10. prints the kernels JSON line (with each kernel's launches in the main
    path, in fit_video, in the eval, in the viewer, in prep and in the
    multi-GPU phase's banded stages), then as its last line
@@ -803,18 +809,23 @@ def main_path(scene):
 
 def _main_path(scene):
     from gflow_tpu_torch.ops import _build
+    from gflow_tpu_torch.opt import graphs as stage_graphs
 
     img, depth, intr, params, n0, rcfg = scene
     grad_check(scene)
     with plain_versions():
         plain_traces, plain_alive, _, _ = check_run(scene)
     _build.LAUNCHES.clear()
+    _build.REPLAYED.clear()
+    stage_graphs.REPLAYS.clear()
     traces, alive, p, out = check_run(scene)
     torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
-    log(f"# main path launches: {launches}")
+    launches, replayed = dict(_build.LAUNCHES), dict(_build.REPLAYED)
+    log(f"# main path launches: {launches}, of them in CUDA graph replays {replayed}; graph "
+        f"replays {dict(stage_graphs.REPLAYS)}")
     for name in _build.KERNELS:
         assert launches.get(name, 0) > 0, f"kernel {name} never launched on the main path"
+        assert replayed.get(name, 0) > 0, f"kernel {name} never launched in a graph replay"
 
     # both densify events saturate max_densify=256 (occ: 50,000 x 9,216/409,920
     # x 0.5 = 562 points; error: > 0.5% of pixels above 1e-2 at this stage)
@@ -842,11 +853,83 @@ def _main_path(scene):
     for k in out:
         torch.testing.assert_close(out[k], plain_out[k], atol=5e-4, rtol=1e-3)
     log(f"# render {sorted(out)} matches plain path (atol 5e-4, rtol 1e-3)")
-    return launches
+    graph_holds(scene, (traces, alive, p, launches))
+    return launches, replayed
+
+
+def flat_stage(p, s, info):
+    """Every tensor a stage returns, by name."""
+    flat = {f"params.{k}": v for k, v in p._asdict().items()}
+    flat.update({f"state.{k}": v for k, v in s._asdict().items()})
+    for k, v in info.items():
+        for m, x in (v.items() if isinstance(v, dict) else [("", v)]):
+            flat[f"{k}.{m}" if m else k] = x
+    return flat
+
+
+def graph_holds(scene, graphed_check):
+    """The stages as CUDA graphs (the default) against the same stages
+    eager (disable_graphs), deterministic (called from main_path): the
+    3-stage check (the lean path with its occ and error densify, and the
+    camera-only stage; graphed_check is its graphed run), a rebin_every=4
+    and a snapshot_every=5 full stage of 20 iterations, each with an occ
+    densify at 0 and an error densify after iteration 9. n_alive, the loss
+    traces, the parameters (and every other output of the rebin and
+    snapshot stages) are 0 apart, and the launch counts equal."""
+    import dataclasses
+
+    from gflow_tpu_torch.ops import _build
+    from gflow_tpu_torch.opt import graphs as stage_graphs
+    from gflow_tpu_torch.opt.state import init_frame_state
+    from gflow_tpu_torch.opt.train import StageConfig, train_stage
+
+    traces, alive, p, launches = graphed_check
+    _build.LAUNCHES.clear()
+    with stage_graphs.disable_graphs():
+        e_traces, e_alive, e_p, _ = check_run(scene)
+    torch.cuda.synchronize()
+    e_launches = dict(_build.LAUNCHES)
+    assert e_alive == alive and e_launches == launches, (e_alive, alive, e_launches, launches)
+    diff = {"check": max(max(float((a - b).abs().max()) for a, b in zip(traces, e_traces)),
+                         max(float((getattr(p, k) - getattr(e_p, k)).abs().max())
+                             for k in p._fields))}
+    img, depth, intr, params, n0, rcfg = scene
+    tg = check_targets(img, depth)
+    dyn_full = dynamics()[1]
+    base = StageConfig(W=W, H=H, iterations=20, render=rcfg, densify_occ=True,
+                       densify_interval=10, densify_times=1, max_densify=256)
+    counts = {"check": launches}
+    for path, cfg in (("rebin", dataclasses.replace(base, rebin_every=4)),
+                      ("snapshot", dataclasses.replace(base, snapshot_every=5))):
+        runs = []
+        for eager in (False, True):
+            state = init_frame_state(CAPACITY)._replace(
+                n_alive=torch.tensor(n0, dtype=torch.int32, device="cuda"))
+            gen = torch.Generator(device="cuda").manual_seed(4)
+            _build.LAUNCHES.clear()
+            with stage_graphs.disable_graphs() if eager else contextlib.nullcontext():
+                out = flat_stage(*train_stage(params, state, tg, intr, gen, cfg, dyn_full))
+            torch.cuda.synchronize()
+            runs.append((out, dict(_build.LAUNCHES)))
+        (g, l_g), (e, l_e) = runs
+        assert set(g) == set(e) and l_g == l_e, (l_g, l_e)
+        diff[path] = max(float((g[k].double() - e[k].double()).abs().max())
+                         for k in g if g[k].numel())
+        counts[path] = {**l_g, "n_alive": int(g["n_alive"])}
+    log(f"# stages as CUDA graphs vs eager (deterministic): max abs diff over n_alive, "
+        f"loss traces and parameters (rebin, snapshot: every output) {json.dumps(diff)}; "
+        f"launches, equal in both: {json.dumps(counts)}")
+    assert not any(diff.values()), diff
+    return {"max_abs_diff": diff, "launches": counts}
 
 
 def time_frame(scene):
-    """One frame at the canonical budget, after one warm-up frame."""
+    """One frame at the canonical budget after one warm-up frame (which
+    records the stages' CUDA graphs), then timed in turns as graphs (the
+    default) and eager (disable_graphs): graphed, eager, eager, graphed.
+    Each frame starts from the one before. Returns {"graphed": [..],
+    "eager": [..]} of per-frame results and their means."""
+    from gflow_tpu_torch.opt import graphs as stage_graphs
     from gflow_tpu_torch.opt.state import init_frame_state
     from gflow_tpu_torch.opt.train import StageConfig, train_stage
     from gflow_tpu_torch.ops import _build
@@ -862,26 +945,34 @@ def time_frame(scene):
     p = params
     s = init_frame_state(CAPACITY)._replace(
         n_alive=torch.tensor(n0, dtype=torch.int32, device="cuda"))
-    result = {}
-    for frame in ("warmup", "timed"):
+    frames = {"graphed": [], "eager": []}
+    for mode in ("warmup", "graphed", "eager", "eager", "graphed"):
         _build.LAUNCHES.clear()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        p, s, _ = train_stage(p, s, tg, intr, gen, cfg_cam, dyn_cam)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        cam_launches = dict(_build.LAUNCHES)
-        p, s, info = train_stage(p, s, tg, intr, gen, cfg_full, dyn_full)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
+        with stage_graphs.disable_graphs() if mode == "eager" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, s, _ = train_stage(p, s, tg, intr, gen, cfg_cam, dyn_cam)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            cam_launches = dict(_build.LAUNCHES)
+            p, s, info = train_stage(p, s, tg, intr, gen, cfg_full, dyn_full)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
         full_launches = {k: v - cam_launches.get(k, 0) for k, v in _build.LAUNCHES.items()}
         assert torch.isfinite(info["loss_trace"]).all()
         result = dict(cam_ms_per_iter=(t1 - t0) / 150 * 1e3,
                       full_ms_per_iter=(t2 - t1) / 300 * 1e3, s_per_frame=t2 - t0,
                       cam_launches=cam_launches, full_launches=full_launches,
                       n_alive=int(info["n_alive"]))
-        log(f"# frame {frame}: {json.dumps(result)}")
-    return result
+        log(f"# frame {mode}: {json.dumps(result)}")
+        if mode != "warmup":
+            frames[mode].append(result)
+    for mode, runs in list(frames.items()):
+        assert runs[0]["cam_launches"] == runs[1]["cam_launches"], runs
+        frames[f"{mode}_mean"] = {k: float(np.mean([r[k] for r in runs])) for k in
+                                  ("cam_ms_per_iter", "full_ms_per_iter", "s_per_frame")}
+    assert frames["graphed"][0]["cam_launches"] == frames["eager"][0]["cam_launches"], frames
+    return frames
 
 
 # ---------------------------------------------------------------------------
@@ -1034,21 +1125,26 @@ def fit_video_outputs(trainer, W_=W, H_=H):
 
 @contextmanager
 def compositor_shapes():
-    """Count the packed compositor calls by shape (K1/K2 by K and F) while
-    the block runs; every call still goes to cuda_raster.packed_composite."""
+    """Count the forward compositor launches by shape (K1/K2 by K and F)
+    while the block runs, eager or replayed in a CUDA graph (a launch hook:
+    nothing is patched, so the stages' graphs are the main path's own)."""
     import collections
 
-    from gflow_tpu_torch.ops import cuda_raster
+    from gflow_tpu_torch.ops import _build
 
-    counts, packed = collections.Counter(), cuda_raster.packed_composite
+    counts = collections.Counter()
 
-    def tally(g_attrs, counts_, bg, n_tx, with_cov=False, row0=0):
-        T, K, CA = g_attrs.shape
-        counts[f"{'K2' if with_cov else 'K1'} K={K} F={CA - 6 - int(with_cov)}"] += 1
-        return packed(g_attrs, counts_, bg, n_tx, with_cov, row0)
+    def tally(name, args):
+        if name in ("composite_fwd", "composite_fwd_cov"):
+            T, K, CA = args[1]  # g_attrs' shape
+            cov = name == "composite_fwd_cov"
+            counts[f"{'K2' if cov else 'K1'} K={K} F={CA - 6 - int(cov)}"] += 1
 
-    with mock.patch.object(cuda_raster, "packed_composite", tally):
+    _build.LAUNCH_HOOKS.append(tally)
+    try:
         yield counts
+    finally:
+        _build.LAUNCH_HOOKS.remove(tally)
 
 
 def fit_video_phase(scene):
@@ -1838,10 +1934,12 @@ def banded_scene(scene, bands):
     return (*scene[:5], rc)
 
 
-def stage_ms(scene, iters=20):
+def stage_ms(scene, iters=20, eager=False):
     """ms per iteration of a full stage of `iters` iterations from the
     scene's init (no densify, the final forward included), after a warm-up
-    stage."""
+    stage: as CUDA graphs or, with eager, inside disable_graphs() (a
+    banded scene runs eager either way)."""
+    from gflow_tpu_torch.opt import graphs as stage_graphs
     from gflow_tpu_torch.opt.state import init_frame_state
     from gflow_tpu_torch.opt.train import StageConfig, train_stage
 
@@ -1851,11 +1949,12 @@ def stage_ms(scene, iters=20):
     state = init_frame_state(CAPACITY)._replace(
         n_alive=torch.tensor(n0, dtype=torch.int32, device="cuda"))
     gen = torch.Generator(device="cuda").manual_seed(2)
-    train_stage(params, state, tg, intr, gen, cfg, dynamics()[1])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    train_stage(params, state, tg, intr, gen, cfg, dynamics()[1])
-    torch.cuda.synchronize()
+    with stage_graphs.disable_graphs() if eager else contextlib.nullcontext():
+        train_stage(params, state, tg, intr, gen, cfg, dynamics()[1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_stage(params, state, tg, intr, gen, cfg, dynamics()[1])
+        torch.cuda.synchronize()
     return (time.perf_counter() - t0) / iters * 1e3
 
 
@@ -1886,14 +1985,17 @@ def banded_stages(scene, bands):
     assert max(pdiff.values()) <= BAND_PARAM_ATOL, pdiff
     assert all(torch.isfinite(v).all() for v in out_b.values())
 
-    configs = {"unbanded": scene, f"{N_BANDS} bands on cuda:0": banded_scene(
-        scene, (torch.device("cuda", 0),) * N_BANDS)}
+    # the bands run eager: the unbanded stage is timed as graphs and eager
+    configs = {"unbanded graphed": (scene, False), "unbanded eager": (scene, True),
+               f"{N_BANDS} bands on cuda:0": (banded_scene(
+                   scene, (torch.device("cuda", 0),) * N_BANDS), True)}
     if torch.cuda.device_count() > 1:
-        configs[f"{N_BANDS} bands over {torch.cuda.device_count()} cards"] = sb
+        configs[f"{N_BANDS} bands over {torch.cuda.device_count()} cards"] = (sb, True)
     order = [*configs, *reversed(list(configs))]
     times = {k: [] for k in configs}
     for k in order:
-        times[k].append(stage_ms(configs[k]))
+        scene_k, eager = configs[k]
+        times[k].append(stage_ms(scene_k, eager=eager))
     ms = {k: float(np.mean(v)) for k, v in times.items()}
     log(f"# banded stages ({[str(d) for d in bands]}): launches {launches}; n_alive {alive_b} "
         f"(= unbanded); loss traces vs unbanded max rel diff per stage {rel} (rtol "
@@ -2093,13 +2195,46 @@ def profile_binning(main_inputs):
     return out
 
 
+def graph_report():
+    """Every CUDA graph the stages called from this script recorded
+    (opt.graphs.DEFAULT_CACHE; fit_video's trainers keep their own): its
+    stage (iterations, path), nodes (cuGraphGetNodes on the kept graph),
+    seconds of capture and of instantiation, kernel launches per replay."""
+    import ctypes
+
+    from gflow_tpu_torch.opt import graphs as stage_graphs
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    rows = []
+    for key, entry in stage_graphs.DEFAULT_CACHE.entries.items():
+        cfg = key[0]
+        path = ("camera" if cfg.camera_only else "snapshot" if cfg.snapshot_every
+                else "rebin" if cfg.rebin_every > 1 else "lean")
+        for name, g in entry.graphs.items():
+            n = ctypes.c_size_t(0)
+            rc = cuda.cuGraphGetNodes(ctypes.c_void_p(g.graph.raw_cuda_graph()), None,
+                                      ctypes.byref(n))
+            assert rc == 0, f"cuGraphGetNodes failed: CUresult {rc}"
+            ctx = key[-1]  # stage_key's recording_context()
+            rows.append({"stage": f"{path} {cfg.iterations} it K={cfg.render.max_per_tile}",
+                         "compositor": ctx[0].__name__, "deterministic": ctx[3],
+                         "graph": name, "nodes": n.value, "capture_s": g.capture_s,
+                         "instantiate_s": g.instantiate_s, "launches": len(g.launches)})
+    log(f"# CUDA graphs recorded ({len(rows)}): {json.dumps(rows)}")
+    return rows
+
+
 def profile_iterations(scene, iters=20):
     """Where an iteration's time goes: a full stage of `iters` iterations
-    (no densify, the final forward included) from the scene's init, run
-    once unprofiled for its wall time and once under torch.profiler for its
-    device time. Device busy time is the sum of the device kernels' times;
-    the profiler slows the host, so the idle share is taken against the
-    unprofiled run of the same stage."""
+    (no densify, the final forward included) from the scene's init, as
+    CUDA graphs and eager, each run once unprofiled for its wall time and
+    once under torch.profiler for its device time (after a warm-up stage
+    that records the graphs). Device busy time is the sum of the device
+    kernels' times; the profiler slows the host, so the idle share is taken
+    against the unprofiled run of the same stage. Graph launches per
+    iteration: the replays the stage made (opt.graphs.REPLAYS) over
+    `iters`."""
+    from gflow_tpu_torch.opt import graphs as stage_graphs
     from gflow_tpu_torch.opt.state import init_frame_state
     from gflow_tpu_torch.opt.train import StageConfig, train_stage
     from gflow_tpu_torch.utils.profiling import trace
@@ -2111,31 +2246,39 @@ def profile_iterations(scene, iters=20):
     state = init_frame_state(CAPACITY)._replace(
         n_alive=torch.tensor(n0, dtype=torch.int32, device="cuda"))
     gen = torch.Generator(device="cuda").manual_seed(2)
-    train_stage(params, state, tg, intr, gen, cfg, dyn_full)  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    train_stage(params, state, tg, intr, gen, cfg, dyn_full)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    trace_dir = os.path.join(FIT_DIR, "profile")
-    with trace(trace_dir) as prof:
-        t0 = time.perf_counter()
-        train_stage(params, state, tg, intr, gen, cfg, dyn_full)
-        torch.cuda.synchronize()
-        profiled_wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = device_rows(prof)
-    busy = sum(r[0] for r in rows) / 1e3 / iters
-    top = [{"name": k[:70], "ms_per_iter": us / 1e3 / iters, "calls_per_iter": c / iters}
-           for us, c, k in sorted(rows, reverse=True)[:12]]
-    wall = wall_ms / iters
-    summary = {"iters": iters, "profiled_wall_ms_per_iter": profiled_wall_ms / iters,
-               "wall_ms_per_iter": wall,
-               "device_busy_ms_per_iter": busy if rows else "not measured",
-               "device_idle_share": 1.0 - busy / wall if rows else "not measured",
-               "device_kernels_per_iter": sum(r[1] for r in rows) / iters, "top": top,
-               "chrome_trace": os.path.relpath(os.path.join(trace_dir, "trace.json"))}
-    log(f"# profile (full stage, final forward included): {json.dumps(summary)}")
-    return summary
+    out = {}
+    for mode in ("graphed", "eager"):
+        with stage_graphs.disable_graphs() if mode == "eager" else contextlib.nullcontext():
+            train_stage(params, state, tg, intr, gen, cfg, dyn_full)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_stage(params, state, tg, intr, gen, cfg, dyn_full)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            trace_dir = os.path.join(FIT_DIR, "profile", mode)
+            stage_graphs.REPLAYS.clear()
+            with trace(trace_dir) as prof:
+                t0 = time.perf_counter()
+                train_stage(params, state, tg, intr, gen, cfg, dyn_full)
+                torch.cuda.synchronize()
+                profiled_wall_ms = (time.perf_counter() - t0) * 1e3
+            replays = sum(stage_graphs.REPLAYS.values())
+        rows = device_rows(prof)
+        busy = sum(r[0] for r in rows) / 1e3 / iters
+        top = [{"name": k[:70], "ms_per_iter": us / 1e3 / iters, "calls_per_iter": c / iters}
+               for us, c, k in sorted(rows, reverse=True)[:12]]
+        wall = wall_ms / iters
+        summary = {"iters": iters, "profiled_wall_ms_per_iter": profiled_wall_ms / iters,
+                   "wall_ms_per_iter": wall,
+                   "device_busy_ms_per_iter": busy if rows else "not measured",
+                   "device_idle_share": 1.0 - busy / wall if rows else "not measured",
+                   "device_kernels_per_iter": sum(r[1] for r in rows) / iters
+                   if rows else "not measured",
+                   "graph_launches_per_iter": replays / iters, "top": top,
+                   "chrome_trace": os.path.relpath(os.path.join(trace_dir, "trace.json"))}
+        log(f"# profile ({mode} full stage, final forward included): {json.dumps(summary)}")
+        out[mode] = summary
+    return out
 
 
 def main():
@@ -2159,7 +2302,7 @@ def main():
     scene = bench_scene()
     inputs = main_path_inputs(scene)
     rows = kernel_phase(inputs)
-    launches = main_path(scene)
+    launches, replayed = main_path(scene)
     fit = fit_video_phase(scene)
     ev = eval_phase(fit)
     viewer = viewer_phase(fit)
@@ -2175,10 +2318,13 @@ def main():
         if k == 128:
             log_row(name, k, where, r)
     frame = time_frame(scene)
-    log(f"# canonical frame (150 camera + 300 full iterations), {smi}: "
-        f"camera {frame['cam_ms_per_iter']:.3f} ms/iter, full {frame['full_ms_per_iter']:.3f} "
-        f"ms/iter, {frame['s_per_frame']:.3f} s/frame")
+    for mode in ("graphed", "eager"):
+        m = frame[f"{mode}_mean"]
+        log(f"# canonical frame (150 camera + 300 full iterations), {mode}, {smi}, mean of "
+            f"2 in turns: camera {m['cam_ms_per_iter']:.3f} ms/iter, full "
+            f"{m['full_ms_per_iter']:.3f} ms/iter, {m['s_per_frame']:.3f} s/frame")
     profile_iterations(scene)
+    graph_report()
     profile_binning(inputs)
 
     replaces = {"composite_fwd": "gflow_tpu/ops/pallas_raster.py:127",
@@ -2190,7 +2336,8 @@ def main():
         r = rows[(name, 96, "synthetic")]
         row = {"name": name, "route": "cuda", "source": f"gflow_tpu_torch/csrc/{src}",
                "replaces": replaces[name],
-               "launches": launches[name], "fit_video_launches": fit["launches"][name],
+               "launches": launches[name], "graph_replay_launches": replayed[name],
+               "fit_video_launches": fit["launches"][name],
                "eval_launches": ev["launches"].get(name, 0),
                "viewer_launches": viewer["launches"].get(name, 0),
                "prep_launches": prep["launches"].get(name, 0),

@@ -11,7 +11,10 @@ Every C entry point takes its tensors as raw device pointers plus the
 current CUDA stream of their device, launches, and returns
 ``cudaGetLastError()``;
 ``launch`` raises when that is nonzero and counts the launch in
-``LAUNCHES``. ``-Xptxas -v`` makes each build report its kernels'
+``LAUNCHES``. A launch made while a CUDA graph is recorded runs only when
+the graph is replayed: inside ``recording()`` it goes to the recording's
+log instead, and ``replay_launches`` counts the log at every replay.
+``-Xptxas -v`` makes each build report its kernels'
 registers, shared memory and spills (``BUILD_LOGS``). No
 ``--use_fast_math``: ``expf`` must stay accurate, because alpha is
 compared against the 1/255 threshold.
@@ -19,6 +22,7 @@ compared against the 1/255 threshold.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -45,13 +49,20 @@ KERNELS = {
     "bin_tail": ("pack.cu", "gflow_bin_tail", (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I)),
 }
 
-# launches per kernel name since the last reset (``LAUNCHES.clear()``)
+# launches per kernel name since the last reset (``LAUNCHES.clear()``):
+# eager calls and CUDA graph replays
 LAUNCHES: collections.Counter = collections.Counter()
+# the part of LAUNCHES that CUDA graph replays made (replay_launches)
+REPLAYED: collections.Counter = collections.Counter()
+# callbacks f(name, args) at every launch that LAUNCHES counts, args being
+# the launch's arguments with each tensor given as its shape
+LAUNCH_HOOKS: list = []
 # compiler output per source built by this process
 BUILD_LOGS: dict[str, str] = {}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict = {}
+_log: list | None = None  # the open recording's launch log (recording())
 
 
 def _nvcc() -> str:
@@ -126,7 +137,39 @@ def launch(name: str, *args) -> None:
         rc = fn(*cargs, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch on {dev}: cudaError {rc}")
+    count_launch(name, tuple(tuple(a.shape) if isinstance(a, torch.Tensor) else int(a)
+                             for a in args))
+
+
+def count_launch(name: str, args: tuple) -> None:
+    """Count one launch of kernel `name` in LAUNCHES and tell the hooks,
+    or, inside ``recording()``, log it there instead."""
+    if _log is not None:
+        _log.append((name, args))
+        return
     LAUNCHES[name] += 1
+    for hook in LAUNCH_HOOKS:
+        hook(name, args)
+
+
+@contextlib.contextmanager
+def recording():
+    """Log the launches made inside the block instead of counting them
+    (they are recorded into a CUDA graph, or run on scratch data while one
+    is warmed up); yields the log, a list of (name, args)."""
+    global _log
+    outer, _log = _log, []
+    try:
+        yield _log
+    finally:
+        _log = outer
+
+
+def replay_launches(log) -> None:
+    """Count the launches of a recording's log: one replay of its graph."""
+    for name, args in log:
+        count_launch(name, args)
+        REPLAYED[name] += 1
 
 
 def tensor_device(args) -> torch.device:

@@ -39,10 +39,33 @@ def blend_tile_block(c_uv, c_conic, c_op, c_feat, c_px, c_py, bg):
     """Front-to-back alpha blend of a (C, K, ·) block of per-tile gathered
     attributes onto (C, P) pixel coordinates -> (C, P, F)."""
     alpha = tile_alpha(c_uv, c_conic, c_op, c_px, c_py)
-    trans = torch.cumprod(1.0 - alpha, dim=1)  # inclusive, (C, K, P)
+    trans = _Cumprod.apply(1.0 - alpha, 1)  # inclusive, (C, K, P)
     trans_excl = torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], dim=1)
     out = torch.einsum("ckp,ckf->cpf", alpha * trans_excl, c_feat)
     return out + trans[:, -1][:, :, None] * bg[None, None, :]
+
+
+class _Cumprod(torch.autograd.Function):
+    """torch.cumprod(x, dim) of an x without zeros (1 - alpha, alpha at most
+    ALPHA_CLAMP < 1). The backward is torch's own for that case, the
+    reversed cumulative sum of out * grad over x, without the test for
+    zeros that torch's runs first: it reads a flag back to the host, which
+    a CUDA graph cannot record."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int):
+        out = torch.cumprod(x, dim)
+        ctx.save_for_backward(x, out)
+        ctx.dim = dim
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        if x.shape[ctx.dim] == 1:
+            return grad, None
+        d = ctx.dim
+        return (out * grad).flip(d).cumsum(d).flip(d).div(x), None
 
 
 def tile_pixels(T: int, n_tx: int, device, row0: int = 0):
@@ -103,4 +126,8 @@ def untile(out, n_tx: int, n_ty: int, W: int, H: int):
 
 
 def bg_vector(bg, F: int, device):
+    """The (F,) float32 background. A Python number is filled in on the
+    device: no host copy, so that a CUDA graph can record it."""
+    if isinstance(bg, (int, float)):
+        return torch.full((F,), float(bg), dtype=torch.float32, device=device)
     return torch.as_tensor(bg, dtype=torch.float32, device=device).expand(F).contiguous()

@@ -174,7 +174,10 @@ def render(xyz, scale, rotate, opacity, rgb, intr, extr, bg, W: int, H: int,
     if need_center:
         # identity conic + opacity 1 point-cloud view; opacity-masked points
         # (dead capacity slots) stay invisible
-        center_conic = torch.tensor([1.0, 0.0, 1.0], device=dev).expand_as(conic)
+        # filled in on the device (no host copy: the stage's snapshot records
+        # this in a CUDA graph)
+        center_conic = torch.zeros_like(conic)
+        center_conic[:, ::2] = 1.0
         center_op = ((depth > 0) & (opacity > 0)).to(torch.float32)
         out["center"] = composite(config, bins.tile_lists, uv, center_conic, center_op, rgb,
                                   bg, W, H, n_tx, n_ty, tile_counts=bins.tile_counts)
@@ -216,7 +219,8 @@ def render_traj(xyz, scale, rotate, opacity, rgb, intr, extr, bg, W: int, H: int
     cutoff = (n if n_actual is None else int(n_actual)) - point_num
     scale_per_pt = torch.where(torch.arange(n, device=dev) < cutoff, point_scale,
                                line_scale)[:, None]
-    conic = torch.tensor([1.0, 0.0, 1.0], device=dev) * scale_per_pt
+    conic = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    conic[:, ::2] = scale_per_pt
     return composite(config, bins.tile_lists, proj["uv"], conic, opacity, rgb, bg, W, H, n_tx,
                      n_ty, tile_counts=bins.tile_counts)
 

@@ -45,7 +45,7 @@ def densify_by_pixels(params: Params, n_alive, error_map, mask, gt_image, gt_dep
 
     mask_ratio = mask.to(torch.float32).mean()
     densify_num = (num_points * mask_ratio * percent).to(torch.int32)
-    densify_num = torch.minimum(densify_num, torch.tensor(max_densify, dtype=torch.int32, device=dev))
+    densify_num = densify_num.clamp_max(max_densify)
     densify_num = torch.minimum(densify_num, C - n_alive)
 
     cdf = torch.cumsum(err.reshape(-1), dim=0)
@@ -63,10 +63,12 @@ def densify_by_pixels(params: Params, n_alive, error_map, mask, gt_image, gt_dep
     rgbs = gt_image[ys, xs].clamp(1e-15, 1 - 1e-15)
 
     uv = torch.stack([xs, ys], dim=1).to(torch.float32)
+    rotate = torch.zeros((max_densify, 4), device=dev)  # identity wxyz, no host copy
+    rotate[:, 0] = 1.0
     new = {
         "xyz": pix2world(uv, depths, intr, extr),
         "scale": scales.abs()[:, None].expand(max_densify, 3),
-        "rotate": torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev).expand(max_densify, 4),
+        "rotate": rotate,
         "opacity": activate_inv("opacity", torch.full((max_densify, 1), 0.99, device=dev)),
         "rgb": activate_inv("rgb", rgbs),
     }

@@ -81,20 +81,24 @@ class OptState(NamedTuple):
 
     m: Params
     v: Params
-    step: int
+    step: torch.Tensor  # () int32 on the parameters' device: a CUDA graph replays it
     post_densify: bool  # see opt/densify.py for the mirrored quirk
 
 
 def init_opt_state(params: Params) -> OptState:
     zeros = Params(*(torch.zeros_like(p) for p in params))
-    return OptState(m=zeros, v=zeros, step=0, post_densify=False)
+    return OptState(m=zeros, v=zeros,
+                    step=torch.zeros((), dtype=torch.int32, device=params.xyz.device),
+                    post_densify=False)
 
 
 def adam_update(params: Params, grads: Params, opt_state: OptState, lr_attr,
                 lr_pose, lr_depth, b1=0.9, b2=0.999, eps=1e-8):
+    """One Adam step. The learning rates are numbers or 0-d float32 tensors
+    (the stage's schedule row); the step count stays on the device."""
     step = opt_state.step + 1
     # bias corrections in float32, as the reference computes them
-    t = torch.full((), step, dtype=torch.float32, device=params.xyz.device)
+    t = step.to(torch.float32)
     bc1 = 1.0 - b1 ** t
     bc2 = 1.0 - b2 ** t
     lrs = (lr_attr, lr_pose, lr_depth)

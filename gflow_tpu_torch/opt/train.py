@@ -1,8 +1,15 @@
 """One optimization stage of the per-frame fit (SimpleGaussian.train(),
 gflow/trainer.py:332-711).
 
-Counterpart of ``gflow_tpu/opt/train.py``: a Python loop of render ->
-loss -> backward -> gated Adam. Each iteration composites one fused
+Counterpart of ``gflow_tpu/opt/train.py``: iterations of render -> loss
+-> backward -> gated Adam. The loop carries its state in fixed buffers
+(``_StageBuffers``), updated in place by each piece of the loop body (an
+iteration, a rebinning, a snapshot); the learning rates come from a
+per-stage schedule tensor and the densify uniforms are drawn up front. On a
+CUDA device each piece runs as the replay of a CUDA graph recorded once per
+static configuration (``opt/graphs.py``, the counterpart of the JAX
+package's jitted ``fori_loop``), and densify runs eagerly between replays;
+on the CPU the same pieces run eagerly. Each iteration composites one fused
 rgb+depth feature pass; the camera-only stage adds the moving-Gaussian
 coverage as a second output of the same compositor pass (kernel K2 on
 CUDA). With ``cfg.render.band_devices`` both composite in bands of tile
@@ -25,6 +32,7 @@ Three variants, as in the JAX package:
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import NamedTuple
 
@@ -34,11 +42,12 @@ import torch
 from .. import resolve_device
 from ..core.camera import pix2world, pose_to_extr
 from ..core.scene import OPACITY_SENSITIVITY
-from ..ops.binning import tile_grid
+from ..ops.binning import TileBins, tile_grid
 from ..ops.projection import TILE, project_gaussians, supported_max_radius
 from ..ops.render import (DEFAULT_CONFIG, RenderConfig, bin_with, composite,
                           composite_with_coverage, render)
 from ..viz.colormap import apply_float_colormap
+from . import graphs as stage_graphs
 from .densify import densify_by_pixels, reset_opt_after_densify
 from .losses import LossWeights, compute_losses, flow_prior_terms
 from .state import FrameState, Params, Targets, adam_update, init_opt_state
@@ -237,10 +246,167 @@ def _densify_events(cfg: StageConfig) -> list[tuple[str, int]]:
     return sorted(events, key=lambda kv: kv[1])
 
 
+def lr_schedule(cfg: StageConfig, dyn: StageDynamics) -> torch.Tensor:
+    """(iterations, 3) float32: row i holds iteration i's learning rates of
+    the attribute, pose and depth groups. LinearLR 1.0 -> 0.1 over the
+    stage (trainer.py:384) up to the first densify event; after it the
+    constant attribute lr with pose and depth frozen (the post-densify
+    quirk, opt/densify.py). The arithmetic is the reference's: the factor
+    in float32, each lr times it in double, rounded to float32."""
+    events = _densify_events(cfg)
+    post = events[0][1] + 1 if events else cfg.iterations
+    i = np.arange(cfg.iterations, dtype=np.float32)
+    factor = (np.float32(1.0) - np.float32(0.9) * i / np.float32(cfg.iterations)).astype(
+        np.float64)
+    lr, lr_cam = float(np.float32(dyn.lr)), float(np.float32(dyn.lr_camera))
+    rows = np.stack([lr * factor, lr_cam * factor, lr * factor], axis=1).astype(np.float32)
+    rows[post:] = (lr, 0.0, 0.0)
+    return torch.from_numpy(rows)
+
+
+def densify_uniforms(gen: torch.Generator, max_densify: int, n_events: int) -> torch.Tensor:
+    """(n_events, max_densify) uniforms in [0, 1) on gen's device, drawn up
+    front: row k is the draw the k-th densify event takes, in event order,
+    one torch.rand per event as the events would draw them."""
+    draws = [torch.rand(max_densify, generator=gen, device=gen.device)
+             for _ in range(n_events)]
+    return torch.stack(draws) if draws else torch.empty((0, max_densify), device=gen.device)
+
+
+def _same(x):
+    return x
+
+
 def _to(tup, dev):
     return type(tup)(*(x.to(dev) for x in tup))
 
 
+def _map(fn, tree):
+    """fn applied to every tensor of a (nested) NamedTuple, tuple or dict;
+    other leaves are kept."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        items = [_map(fn, x) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree
+
+
+def _copy_into(dst, src):
+    """Copy every tensor of `src` into the tensor at the same place in `dst`."""
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+    elif isinstance(dst, dict):
+        for k in dst:
+            _copy_into(dst[k], src[k])
+    elif isinstance(dst, tuple):
+        for d, s in zip(dst, src):
+            _copy_into(d, s)
+
+
+class _StageBuffers:
+    """Every tensor an iteration reads or writes, at addresses that stay put
+    for a CUDA graph: what the loop carries (``CARRIED``: the parameters,
+    Adam's moments and step, n_alive, the iteration counter ``it`` (1,)
+    int64, the loss trace and, when rebinning, the tile lists) and the
+    stage's inputs (frame state, targets, intrinsics, flow-prior terms, the
+    lr schedule). Every piece of the loop updates them in place, eager or
+    replayed."""
+
+    CARRIED = ("params", "opt", "n_alive", "it", "losses", "bins")
+
+    def __init__(self, **fields):
+        self.__dict__.update(fields)
+
+    @classmethod
+    def of(cls, inputs: dict, cfg: StageConfig) -> "_StageBuffers":
+        """Buffers holding copies of `inputs` (train_stage's), Adam's state
+        at zero and, when rebinning, tile lists to be filled at iteration 0."""
+        dev = inputs["intr"].device
+        bins = None
+        if cfg.rebin_every > 1 and cfg.snapshot_every <= 0:
+            n_tx, n_ty = tile_grid(cfg.W, cfg.H)
+            T = n_tx * n_ty
+            bins = TileBins(
+                torch.full((T, cfg.render.max_per_tile), -1, dtype=torch.int32, device=dev),
+                torch.zeros(T, dtype=torch.int32, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev))
+        # init_opt_state's m and v are one tensor: cloned apart, since the
+        # loop writes each in place
+        return cls(**_map(torch.clone, inputs),
+                   opt=_map(torch.clone, init_opt_state(inputs["params"])),
+                   it=torch.zeros(1, dtype=torch.int64, device=dev),
+                   losses=torch.zeros(cfg.iterations, device=dev), bins=bins)
+
+    def load(self, inputs: dict) -> None:
+        """Start a stage on these buffers: the inputs copied in, Adam's
+        state, the counter and the trace at zero."""
+        for k, v in inputs.items():
+            _copy_into(getattr(self, k), v)
+        for t in (*self.opt.m, *self.opt.v, self.opt.step, self.it, self.losses):
+            t.zero_()
+
+    def scratch(self) -> "_StageBuffers":
+        """A copy whose carried tensors are clones (a graph's warm-up)."""
+        return _StageBuffers(**{k: _map(torch.clone, v) if k in self.CARRIED else v
+                                for k, v in vars(self).items()})
+
+
+def _iteration(buf: _StageBuffers, cfg: StageConfig, weights: LossWeights):
+    """One iteration in place on `buf`: forward, gated gradients, Adam at
+    row buf.it of the schedule, the loss into the trace, buf.it + 1.
+    Returns the forward's aux outputs, detached."""
+    leaves = [p.detach().requires_grad_() for p in buf.params]
+    total, aux = _forward(Params(*leaves), buf.n_alive, buf.state, buf.targets, buf.intr,
+                          weights, cfg, flow_prior=buf.flow_prior, bins=buf.bins)
+    grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    grads = Params(*(torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)))
+    grads = _gate_grads(grads, buf.state, buf.n_alive, cfg.camera_only)
+    lr = buf.lrs.index_select(0, buf.it)[0]
+    params, opt = adam_update(Params(*(x.detach() for x in leaves)), grads, buf.opt,
+                              lr[0], lr[1], lr[2])
+    _copy_into(buf.params, params)
+    _copy_into(buf.opt, opt)
+    at_i = torch.arange(cfg.iterations, device=buf.it.device) == buf.it
+    buf.losses.copy_(torch.where(at_i, total.detach(), buf.losses))
+    buf.it += 1
+    return _map(torch.Tensor.detach, aux)
+
+
+def _rebin(buf: _StageBuffers, cfg: StageConfig):
+    """The tile lists from the current geometry, into buf.bins."""
+    _copy_into(buf.bins, _compute_bins(buf.params, buf.n_alive, buf.intr, cfg))
+    return {}
+
+
+@torch.no_grad()
+def _densify(buf: _StageBuffers, cfg: StageConfig, dyn: StageDynamics, kind: str, u,
+             emap=None):
+    """Densify in place on `buf` with the uniforms u, then reset Adam
+    (the post-densify quirk, opt/densify.py). kind "occ": uniform map over
+    the occ mask; "err": the rgb error above threshold, from `emap` or,
+    without one, from one extra forward at the current parameters."""
+    if kind == "err":
+        if emap is None:
+            emap = _forward(buf.params, buf.n_alive, buf.state, buf.targets, buf.intr,
+                            dyn.weights, cfg, flow_prior=buf.flow_prior)[1]["loss_rgb_pixel"]
+        mask = emap > dyn.densify_err_thre
+        percent = dyn.densify_err_percent
+    else:
+        emap = torch.ones((cfg.H, cfg.W), dtype=torch.float32, device=buf.intr.device)
+        mask = buf.targets.occ_mask
+        percent = dyn.densify_occ_percent
+    params, n_alive, _ = densify_by_pixels(
+        buf.params, buf.n_alive, emap, mask, buf.targets.image, buf.targets.depth, buf.intr,
+        pose_to_extr(buf.params.pose), dyn.num_points, percent, u)
+    _copy_into(buf.params, params)
+    buf.n_alive.copy_(n_alive)
+    _copy_into(buf.opt, reset_opt_after_densify(buf.opt, params))
+
+
+@torch.no_grad()
 def _snapshot(aux, params: Params, n_alive, intr, cfg: StageConfig, dev):
     """uint8 rgb and turbo depth of the last forward, and the center view
     (identity conic, opacity 1) of the updated parameters."""
@@ -255,81 +421,74 @@ def _snapshot(aux, params: Params, n_alive, intr, cfg: StageConfig, dev):
 
 def train_stage(params: Params, state: FrameState, targets: Targets, intr,
                 gen: torch.Generator, cfg: StageConfig, dyn: StageDynamics,
-                device=None):
+                device=None, graphs: stage_graphs.GraphCache | None = None):
     """Run one optimization stage on `device` (``cuda`` unless the caller
-    passes another). `gen` draws the densify uniforms. Returns (params,
-    state, info); info["loss_trace"] holds every iteration's total loss and,
-    on the snapshot path, info["snapshots"] the uint8 stacks (n_chunks, H,
-    W, 3) under "rgb", "depth_map" and "center"."""
+    passes another). `gen` draws the densify uniforms. On a CUDA device the
+    loop runs as CUDA graphs kept in `graphs` (None: the process's
+    ``opt.graphs.DEFAULT_CACHE``); eagerly on the CPU, in the tile-band mode
+    and inside ``opt.graphs.disable_graphs()``. Returns (params, state,
+    info); info["loss_trace"] holds every iteration's total loss and, on
+    the snapshot path, info["snapshots"] the uint8 stacks (n_chunks, H, W,
+    3) under "rgb", "depth_map" and "center"."""
     dev = resolve_device(device)
     params, state, targets = _to(params, dev), _to(state, dev), _to(targets, dev)
     intr = torch.as_tensor(intr, dtype=torch.float32).to(dev)
     if cfg.propagate:
         params = propagate_moving_points(params, state, targets, intr, cfg.W, cfg.H)
-    opt_state = init_opt_state(params)
-    n_alive = state.n_alive
-    flow_prior = flow_prior_terms(state, targets, cfg.camera_only, cfg.W, cfg.H)
+    events = _densify_events(cfg)
+    u = densify_uniforms(gen, cfg.max_densify, len(events)).to(dev)
+    inputs = dict(params=params, state=state, targets=targets, intr=intr,
+                  n_alive=state.n_alive, lrs=lr_schedule(cfg, dyn).to(dev),
+                  flow_prior=flow_prior_terms(state, targets, cfg.camera_only, cfg.W, cfg.H))
+    if stage_graphs.graphed(dev, cfg):
+        cache = stage_graphs.DEFAULT_CACHE if graphs is None else graphs
+        run = cache.entry(stage_graphs.stage_key(cfg, params.capacity, dev, dyn.weights),
+                          lambda: _StageBuffers.of(inputs, cfg), dev)
+        run.buffers.load(inputs)
+        out = torch.clone  # the next stage of this key rewrites buffers and outputs
+        checked = stage_graphs.sync_check(dev)
+    else:
+        run = stage_graphs.Eager(_StageBuffers.of(inputs, cfg))
+        out = _same  # fresh buffers, this call's own
+        checked = contextlib.nullcontext()
+    buf = run.buffers
 
-    def forward(p, n, diag_t_final=False, bins=None):
-        return _forward(p, n, state, targets, intr, dyn.weights, cfg,
-                        flow_prior=flow_prior, diag_t_final=diag_t_final, bins=bins)
+    def step_fn(b):
+        return _iteration(b, cfg, dyn.weights)
 
-    def step(i, params, opt_state, n_alive, bins=None):
-        """Forward + gated grads + Adam. LinearLR 1.0 -> 0.1 over the stage
-        (trainer.py:384), frozen at constant attribute lr after densify."""
-        leaves = [p.detach().requires_grad_() for p in params]
-        total, aux = forward(Params(*leaves), n_alive, bins=bins)
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
-        grads = Params(*(torch.zeros_like(x) if g is None else g
-                         for g, x in zip(grads, leaves)))
-        grads = _gate_grads(grads, state, n_alive, cfg.camera_only)
-        # float32 schedule arithmetic, as the reference computes it
-        factor = float(np.float32(1.0) - np.float32(0.9) * np.float32(i)
-                       / np.float32(cfg.iterations))
-        lr, lr_cam = float(np.float32(dyn.lr)), float(np.float32(dyn.lr_camera))
-        if opt_state.post_densify:
-            lrs = (lr, 0.0, 0.0)
+    def rebin_fn(b):
+        return _rebin(b, cfg)
+
+    at = {e: (kind, k) for k, (kind, e) in enumerate(events)}
+    aux = metrics = snaps = None
+    with checked:
+        if cfg.snapshot_every > 0:
+            every = cfg.snapshot_every
+            snaps = {k: torch.empty((-(-cfg.iterations // every), cfg.H, cfg.W, 3),
+                                    dtype=torch.uint8, device=dev)
+                     for k in ("rgb", "depth_map", "center")}
+            for i in range(cfg.iterations):
+                aux = run("step", step_fn)
+                if i in at:  # from this iteration's own error map
+                    _densify(buf, cfg, dyn, at[i][0], u[at[i][1]], emap=aux["loss_rgb_pixel"])
+                if (i + 1) % every == 0 or i + 1 == cfg.iterations:
+                    # aux bound now: a graph reads the step graph's outputs
+                    snap = run("snapshot", lambda b, aux=aux: _snapshot(
+                        aux, b.params, b.n_alive, b.intr, cfg, dev))
+                    for k, stack in snaps.items():
+                        stack[i // every].copy_(snap[k])
         else:
-            lrs = (float(np.float32(lr * factor)), float(np.float32(lr_cam * factor)),
-                   float(np.float32(lr * factor)))
-        params, opt_state = adam_update(Params(*(x.detach() for x in leaves)), grads,
-                                        opt_state, *lrs)
-        aux = {k: ({m: x.detach() for m, x in v.items()} if k == "metrics" else v.detach())
-               for k, v in aux.items()}
-        return params, opt_state, total.detach(), aux
+            rebin = cfg.rebin_every > 1
+            for i in range(cfg.iterations):
+                if rebin and i % cfg.rebin_every == 0:
+                    run("rebin", rebin_fn)
+                metrics = run("step", step_fn)["metrics"]
+                if i in at:
+                    _densify(buf, cfg, dyn, at[i][0], u[at[i][1]])
+                    if rebin:  # new points enter the lists at once
+                        run("rebin", rebin_fn)
 
-    def apply_densify(params, opt_state, n_alive, kind, emap=None):
-        """kind "occ": uniform map over the occ mask; "err": the rgb error
-        above threshold, from `emap` or, without one, from one extra forward
-        at the current parameters."""
-        u = torch.rand(cfg.max_densify, generator=gen, device=gen.device).to(dev)
-        if kind == "err":
-            if emap is None:
-                with torch.no_grad():
-                    emap = forward(params, n_alive)[1]["loss_rgb_pixel"]
-            mask = emap > dyn.densify_err_thre
-            percent = dyn.densify_err_percent
-        else:
-            emap = torch.ones((cfg.H, cfg.W), dtype=torch.float32, device=dev)
-            mask = targets.occ_mask
-            percent = dyn.densify_occ_percent
-        params, n_alive, _ = densify_by_pixels(
-            params, n_alive, emap, mask, targets.image, targets.depth, intr,
-            pose_to_extr(params.pose), dyn.num_points, percent, u)
-        return params, reset_opt_after_densify(opt_state, params), n_alive
-
-    losses, aux, snaps = [], None, []
-    events = {e: kind for kind, e in _densify_events(cfg)}
     if cfg.snapshot_every > 0:
-        for i in range(cfg.iterations):
-            params, opt_state, loss, aux = step(i, params, opt_state, n_alive)
-            losses.append(loss)
-            if i in events:  # from this iteration's own error map
-                params, opt_state, n_alive = apply_densify(
-                    params, opt_state, n_alive, events[i], emap=aux["loss_rgb_pixel"])
-            if (i + 1) % cfg.snapshot_every == 0 or i + 1 == cfg.iterations:
-                with torch.no_grad():
-                    snaps.append(_snapshot(aux, params, n_alive, intr, cfg, dev))
         if aux is None:  # no iteration ran: zero outputs, as the JAX package
             C = params.capacity
             aux = {"uv": torch.zeros((C, 2), device=dev),
@@ -339,25 +498,16 @@ def train_stage(params: Params, state: FrameState, targets: Targets, intr,
                    "tile_overflow": torch.zeros((), device=dev),
                    "metrics": {k: torch.zeros((), device=dev) for k in
                                ("rgb", "depth", "var", "scale", "still", "flow", "total")}}
+        aux = _map(out, aux)
         metrics = aux["metrics"]
     else:
-        rebin = cfg.rebin_every > 1
-        bins, metrics = None, None
-        for i in range(cfg.iterations):
-            if rebin and i % cfg.rebin_every == 0:
-                bins = _compute_bins(params, n_alive, intr, cfg)
-            params, opt_state, loss, step_aux = step(i, params, opt_state, n_alive, bins)
-            losses.append(loss)
-            metrics = step_aux["metrics"]
-            if i in events:
-                params, opt_state, n_alive = apply_densify(params, opt_state, n_alive,
-                                                           events[i])
-                if rebin:  # new points enter the lists at once
-                    bins = _compute_bins(params, n_alive, intr, cfg)
         # one final forward (no grad) for the stage's output render + uv
         with torch.no_grad():
-            _, aux = forward(params, n_alive, diag_t_final=cfg.telemetry_t_final)
-        metrics = metrics if metrics is not None else aux["metrics"]
+            _, aux = _forward(buf.params, buf.n_alive, buf.state, buf.targets, buf.intr,
+                              dyn.weights, cfg, flow_prior=buf.flow_prior,
+                              diag_t_final=cfg.telemetry_t_final)
+        metrics = _map(out, metrics) if metrics is not None else aux["metrics"]
+    params, n_alive = _map(out, buf.params), out(buf.n_alive)
 
     if not cfg.camera_only:
         state = finalize_stage(aux["uv"], aux["depth"], params, state,
@@ -371,15 +521,13 @@ def train_stage(params: Params, state: FrameState, targets: Targets, intr,
     # on `dev`.
     info = {
         "metrics": metrics,
-        "loss_trace": torch.stack(losses) if losses else torch.zeros(0, device=dev),
+        "loss_trace": out(buf.losses),
         "n_alive": n_alive,
         **{k: aux[k] for k in ("rgb", "depth_map", "uv", "depth", "tile_overflow")},
     }
     for k in ("t_final_overflow_mean", "t_final_overflow_max"):
         if k in aux:
             info[k] = aux[k]
-    if cfg.snapshot_every > 0:
-        info["snapshots"] = {k: torch.stack([sn[k] for sn in snaps]) if snaps else
-                             torch.zeros((0, cfg.H, cfg.W, 3), dtype=torch.uint8, device=dev)
-                             for k in ("rgb", "depth_map", "center")}
+    if snaps is not None:
+        info["snapshots"] = snaps
     return params, state, info

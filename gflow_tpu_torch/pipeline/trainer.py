@@ -9,7 +9,11 @@ with the same npz schema and log-directory layout (logs/<timestamp> and a
 
 The device work (rendering, losses, Adam, densify) is
 ``opt.train.train_stage``; this class does the host side. It runs on
-``cuda`` unless the caller passes ``device="cpu"``. Every stage pulls its
+``cuda`` unless the caller passes ``device="cpu"``. On the card each stage
+runs as CUDA graphs, kept in the trainer's own ``opt.graphs.GraphCache``
+(``self.graphs``, the counterpart of the JAX trainer's ``_compiled_stage``
+cache): every frame replays the graphs its stage configuration recorded;
+a K escalation or a capacity growth makes a new key. Every stage pulls its
 host-side results in one batch (``_host``), and images leave the device
 as uint8. Two departures from the JAX package, both its intent: a target
 map is uploaded once per ``set_gt_*`` call (the JAX package caches the
@@ -34,6 +38,7 @@ from ..core.io import imwrite
 from ..core.scene import activate, activate_inv
 from ..ops.render import RenderConfig, render, render_traj
 from ..opt.initialize import init_params_from_image
+from ..opt.graphs import GraphCache
 from ..opt.losses import LossWeights
 from ..opt.state import Params, Targets, init_frame_state
 from ..opt.train import StageConfig, StageDynamics, train_stage
@@ -122,6 +127,7 @@ class GFlowTrainer:
         self.rng = np.random.default_rng(seed)  # the init, as in the JAX package
         # the densify uniforms
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.graphs = GraphCache()  # the stages' CUDA graphs, per stage configuration
 
         if capacity is None:
             # num_points + 50% densify headroom, rounded up to 1024; densify
@@ -341,7 +347,7 @@ class GFlowTrainer:
         with phase("device/stage"):
             self.params, self.state, info = train_stage(
                 self.params, self.state, targets, self.intr, self.gen, cfg, dyn,
-                device=self.device)
+                device=self.device, graphs=self.graphs)
             # one batched pull of everything the host needs from this stage;
             # it also waits for the stage, attributing device time here
             pull = {"tile_overflow": info["tile_overflow"], "metrics": info["metrics"],

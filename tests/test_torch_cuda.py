@@ -8,7 +8,10 @@ Tolerances: images atol 5e-4 / rtol 1e-3 (tests/test_pallas.py:42-44);
 coverage support exact where the plain coverage is clear of 0 by 1e-3;
 gradients normalized by max |ref| per column, atol 5e-4; K3 bitwise
 repeatable (no float atomics); K4 (the binning tail) exact, on the
-sorted-stream cases of tests/test_torch_tail_cases.py."""
+sorted-stream cases of tests/test_torch_tail_cases.py. The stage run as
+CUDA graphs equals the eager stage exactly, deterministic algorithms on."""
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -591,3 +594,121 @@ def test_band_compositor_matches_unbanded_kernel(dev, with_cov):
         assert float(((gb - gu) / gu.abs().max()).abs().max()) <= 5e-4
     fwd = "composite_fwd_cov" if with_cov else "composite_fwd"
     assert l_b == {fwd: 4, "composite_bwd": 4} and l_u == {fwd: 1, "composite_bwd": 1}
+
+
+def graph_stage_inputs(dev, seed=0, Wd=96, Hd=64, n=800, capacity=1024):
+    """A small first-frame stage on the card: points from a smooth image,
+    an occluded region for the occ densify."""
+    from gflow_tpu_torch.opt.initialize import init_params_from_image
+    from gflow_tpu_torch.opt.state import Targets, init_frame_state
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.linspace(0, 1, Hd), np.linspace(0, 1, Wd), indexing="ij")
+    img = np.clip(np.stack([xx, yy, (xx + yy) / 2], -1) + rng.normal(0, 0.05, (Hd, Wd, 3)),
+                  0.02, 0.98).astype(np.float32)
+    depth = (1.5 + xx + rng.uniform(0, 1e-3, (Hd, Wd))).astype(np.float32)
+    intr = np.asarray([80.0, 80.0, Wd / 2, Hd / 2], np.float32)
+    params, n0 = init_params_from_image(img, depth, n, capacity, intr,
+                                        np.c_[np.eye(3), np.zeros(3)].astype(np.float32),
+                                        rng=rng, device=dev)
+    state = init_frame_state(capacity, dev)._replace(
+        n_alive=torch.tensor(n0, dtype=torch.int32, device=dev))
+    occ = np.zeros((Hd, Wd), bool)
+    occ[10:30, 20:50] = True
+    move = np.zeros((Hd, Wd), bool)
+    move[30:50, 40:70] = True
+    targets = Targets(torch.from_numpy(img).to(dev), torch.from_numpy(depth)[..., None].to(dev),
+                      torch.zeros((Hd, Wd, 2), device=dev), torch.from_numpy(move).to(dev),
+                      torch.from_numpy(occ).to(dev))
+    return params, state, targets, torch.from_numpy(intr).to(dev)
+
+
+GRAPH_PATHS = {
+    "lean": dict(densify_occ=True, densify_interval=4, densify_times=1, max_densify=64),
+    "rebin": dict(rebin_every=3, densify_occ=True, densify_interval=4, densify_times=1,
+                  max_densify=64),
+    "snapshot": dict(snapshot_every=3, densify_occ=True, densify_interval=4, densify_times=1,
+                     max_densify=64),
+    "camera": dict(camera_only=True),
+}
+
+
+def graph_stage(dev, path, graphs, seed=0):
+    from gflow_tpu_torch.ops.render import RenderConfig
+    from gflow_tpu_torch.opt.losses import LossWeights
+    from gflow_tpu_torch.opt.train import StageConfig, StageDynamics, train_stage
+
+    params, state, targets, intr = graph_stage_inputs(dev, seed)
+    cfg = StageConfig(W=96, H=64, iterations=8, telemetry_t_final=path == "lean",
+                      render=RenderConfig(max_per_tile=64, max_tiles_per_gaussian=16),
+                      **GRAPH_PATHS[path])
+    dyn = StageDynamics(lr=1e-2, lr_camera=1e-3, num_points=800, densify_occ_percent=0.5,
+                        weights=LossWeights(rgb=1.0, depth=0.1, var=50.0))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return train_stage(params, state, targets, intr, gen, cfg, dyn, graphs=graphs)
+
+
+def flat_outputs(out):
+    params, state, info = out
+    flat = {f"params.{k}": v for k, v in params._asdict().items()}
+    flat.update({f"state.{k}": v for k, v in state._asdict().items()})
+    for k, v in info.items():
+        for m, x in (v.items() if isinstance(v, dict) else [("", v)]):
+            flat[f"info.{k}.{m}"] = x
+    return flat
+
+
+@pytest.mark.parametrize("path", list(GRAPH_PATHS))
+def test_graphed_stage_equals_eager(dev, path):
+    """train_stage as CUDA graphs against the same stage eager
+    (disable_graphs), deterministic algorithms on: every output 0 apart,
+    the same kernel launches (the graphs' counted at each replay), no
+    synchronising call inside the replays (train_stage replays under
+    set_sync_debug_mode("error")); then a second frame through the same
+    graphs, and one replay of the step graph alone under the sync check."""
+    from gflow_tpu_torch.opt import graphs as stage_graphs
+
+    cache = stage_graphs.GraphCache()
+    runs = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for graphed, seed in ((False, 0), (True, 0), (False, 1), (True, 1)):
+            _build.LAUNCHES.clear()
+            stage_graphs.REPLAYS.clear()
+            with contextlib.nullcontext() if graphed else stage_graphs.disable_graphs():
+                out = graph_stage(dev, path, cache, seed)
+            torch.cuda.synchronize()
+            runs.append((flat_outputs(out), dict(_build.LAUNCHES), dict(stage_graphs.REPLAYS)))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for (eager, l_e, r_e), (graphed, l_g, r_g) in (runs[:2], runs[2:]):
+        assert set(eager) == set(graphed)
+        diff = {k: float((eager[k].double() - graphed[k].double()).abs().max())
+                for k in eager if eager[k].numel()}
+        assert not any(diff.values()), diff
+        assert l_g == l_e and set(l_e) >= {"bin_tail", "composite_bwd"}, (l_g, l_e)
+        assert not r_e and r_g["step"] == 8, r_g
+    assert len(cache.entries) == 1
+    (entry,) = cache.entries.values()
+    entry.buffers.it.zero_()  # the stage left its iteration counter at the end
+    with stage_graphs.sync_check(dev):
+        entry.graphs["step"].replay()
+    torch.cuda.synchronize()
+
+
+def test_failed_capture_raises(dev, monkeypatch):
+    """A synchronising call inside the recorded region fails the capture,
+    and train_stage raises: nothing falls back to the eager loop."""
+    from gflow_tpu_torch.opt import graphs as stage_graphs
+    from gflow_tpu_torch.opt import train as ttrain
+
+    gate = ttrain._gate_grads
+
+    def syncing_gate(grads, state, n_alive, camera_only):
+        int(n_alive)  # a device-to-host read
+        return gate(grads, state, n_alive, camera_only)
+
+    monkeypatch.setattr(ttrain, "_gate_grads", syncing_gate)
+    with pytest.raises(RuntimeError):
+        graph_stage(dev, "camera", stage_graphs.GraphCache())
+    torch.cuda.synchronize()

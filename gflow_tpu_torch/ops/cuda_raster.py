@@ -141,20 +141,40 @@ def band_rows(tile_lists, tile_counts, n_tx: int, n_ty: int, D: int):
     return tile_lists, tile_counts, n_ty_pad // D
 
 
+# (bg value, F, device) -> the (F,) background on that device: a band's
+# constant, made once, so that a stage's graph replays no copy of it
+_BAND_BG: dict = {}
+
+
+def band_bg(bg, F: int, dev: torch.device):
+    """The (F,) float32 background of a band on `dev`: a Python number's
+    is made once per device and kept (no copy in a replay); a tensor's is
+    copied."""
+    if not isinstance(bg, (int, float)):
+        return bg_vector(bg, F, dev)
+    key = (float(bg), F, dev)
+    if key not in _BAND_BG:
+        _BAND_BG[key] = bg_vector(float(bg), F, dev)
+    return _BAND_BG[key]
+
+
 def band_composite(g_attrs, counts, bg, n_tx: int, rows_per: int, band_devices,
                    with_cov: bool = False):
     """The packed compositor over bands: band b (rows_per tile rows, from
     tile row b * rows_per) goes to band_devices[b] and composites there in
     place (the kernels' row0, where the JAX wrapper shifts uv.y by the
     band's pixel origin in float32); the band outputs come back to
-    g_attrs' device in order. The split's transpose concatenates the
-    bands' per-slot gradients into the block's gradient."""
+    g_attrs' device in order. bg is a number or an (F,) tensor (band_bg).
+    The split's transpose concatenates the bands' per-slot gradients into
+    the block's gradient."""
     home = g_attrs.device
+    F = g_attrs.shape[2] - 6 - int(with_cov)
     T_b = rows_per * n_tx
     outs, covs = [], []
     for b, (blk, cnt, dev) in enumerate(zip(g_attrs.split(T_b), counts.split(T_b),
                                             band_devices)):
-        res = packed_composite(blk.to(dev), cnt.to(dev), bg.to(dev), n_tx, with_cov,
+        dev = torch.device(dev)
+        res = packed_composite(blk.to(dev), cnt.to(dev), band_bg(bg, F, dev), n_tx, with_cov,
                                row0=b * rows_per)
         out, cov = res if with_cov else (res, None)
         outs.append(out.to(home))
@@ -176,7 +196,6 @@ def composite_tiles_kernel_sharded(tile_lists, uv, conic, opacity, features, bg,
                                         len(band_devices))
     attrs = torch.cat([uv, conic, opacity, features], dim=1)
     g_attrs, counts = pack_attrs(lists, counts, attrs)
-    bg = bg_vector(bg, features.shape[1], uv.device)
     out = band_composite(g_attrs, counts, bg, n_tx, rows_per, band_devices)
     return untile(out, n_tx, rows_per * len(band_devices), W, H)
 
@@ -190,7 +209,6 @@ def composite_with_coverage_kernel_sharded(tile_lists, uv, conic, opacity, featu
                                         len(band_devices))
     attrs = torch.cat([uv, conic, opacity, features, mov], dim=1)
     g_attrs, counts = pack_attrs(lists, counts, attrs)
-    bg = bg_vector(bg, features.shape[1], uv.device)
     out, cov = band_composite(g_attrs, counts, bg, n_tx, rows_per, band_devices, with_cov=True)
     n_ty_pad = rows_per * len(band_devices)
     return untile(out, n_tx, n_ty_pad, W, H), untile(cov, n_tx, n_ty_pad, W, H)

@@ -10,10 +10,13 @@ inputs picks the compositor: the CUDA kernels for CUDA tensors, the plain
 PyTorch versions for CPU tensors. A config with ``band_devices`` (set by
 ``for_scene`` inside ``parallel.mesh.use_mesh``) composites through the
 band wrappers, one band of tile rows per device. Host callers (the
-trainer) call these under ``torch.no_grad()``.
+trainer, the viewer) call ``render_jit`` / ``render_traj_jit`` under
+``torch.no_grad()``: on the card one CUDA graph per static call shape
+(``opt.graphs.ForwardCache``), as the JAX package jit-caches them.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Sequence
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..opt.graphs import ForwardCache
 from ..parallel.mesh import ambient_tile_devices
 from ..viz.colormap import apply_float_colormap
 from . import cuda_raster
@@ -162,8 +166,8 @@ def render(xyz, scale, rotate, opacity, rgb, intr, extr, bg, W: int, H: int,
         cursor = sum(x.shape[1] for x in feats)
         # the acc channel gets bg 0 so it reads sum(alpha_i * T_i) directly
         bg_vec = torch.full((cursor,), float(bg), dtype=torch.float32, device=dev)
-        if "acc" in slices:
-            bg_vec[slices["acc"][0]] = 0.0
+        if "acc" in slices:  # a fill, not a host copy: a CUDA graph records this
+            bg_vec.narrow(0, slices["acc"][0], 1).fill_(0.0)
         img = composite(config, bins.tile_lists, uv, conic, opacity, torch.cat(feats, dim=1),
                         bg_vec, W, H, n_tx, n_ty, tile_counts=bins.tile_counts)
         for name, (s, e) in slices.items():
@@ -185,7 +189,7 @@ def render(xyz, scale, rotate, opacity, rgb, intr, extr, bg, W: int, H: int,
     if as_uint8:
         for name in ("rgb", "depth_map_color", "center", "acc"):
             if name in out:
-                out[name] = (out[name].clamp(0.0, 1.0) * 255).to(torch.uint8)
+                out[name] = quantize_u8(out[name])
     return out
 
 
@@ -200,14 +204,14 @@ def render_scene(scene, camera, bg, W: int, H: int, outputs,
 
 def render_traj(xyz, scale, rotate, opacity, rgb, intr, extr, bg, W: int, H: int,
                 point_num: int, line_scale: float = 1.0, point_scale: float = 2.0,
-                config: RenderConfig = DEFAULT_CONFIG, n_actual: int | None = None,
-                device=None):
+                config: RenderConfig = DEFAULT_CONFIG, n_actual=None, device=None):
     """Trajectory line-set render: the conic is a scaled identity, point_scale
     for the first n - point_num entries and line_scale for the rest (the
     original GFlow's gflow/utils/render.py:110-156 scales the first
     len - point_num entries by point_scale; mirrored exactly). n_actual is
-    the logical count when the arrays are padded to a fixed capacity
-    (padding slots carry opacity 0). Returns the (H, W, 3) image."""
+    the logical count (an int or a 0-d tensor on the device) when the
+    arrays are padded to a fixed capacity (padding slots carry opacity 0).
+    Returns the (H, W, 3) image."""
     dev = resolve_device(device)
     xyz, scale, rotate, opacity, rgb, intr, extr = (
         torch.as_tensor(x, dtype=torch.float32).to(dev)
@@ -216,7 +220,7 @@ def render_traj(xyz, scale, rotate, opacity, rgb, intr, extr, bg, W: int, H: int
     n_tx, n_ty = tile_grid(W, H)
     bins = bin_with(config, proj["uv"], proj["depth"], proj["radius"], W, H)
     n = xyz.shape[0]
-    cutoff = (n if n_actual is None else int(n_actual)) - point_num
+    cutoff = (n if n_actual is None else n_actual) - point_num
     scale_per_pt = torch.where(torch.arange(n, device=dev) < cutoff, point_scale,
                                line_scale)[:, None]
     conic = torch.zeros((n, 3), dtype=torch.float32, device=dev)
@@ -225,9 +229,71 @@ def render_traj(xyz, scale, rotate, opacity, rgb, intr, extr, bg, W: int, H: int
                      n_ty, tile_counts=bins.tile_counts)
 
 
+def quantize_u8(x: torch.Tensor) -> torch.Tensor:
+    """[0, 1] float -> uint8 (clamped, scaled by 255, truncated)."""
+    return (x.clamp(0.0, 1.0) * 255).to(torch.uint8)
+
+
+def _floats(arrays: dict) -> dict:
+    return {k: torch.as_tensor(v, dtype=torch.float32) for k, v in arrays.items()}
+
+
+# the host-called renders as CUDA graphs, with the JAX package's cache
+# sizes (gflow_tpu/ops/render.py:136 and :328)
+RENDER_GRAPHS = ForwardCache("render", 64)
+RENDER_TRAJ_GRAPHS = ForwardCache("render_traj", 32)
+QUANTIZE_GRAPHS = ForwardCache("quantize", 64)
+
+
+def render_jit(xyz, scale, rotate, opacity, rgb, intr, extr, bg, W: int, H: int,
+               outputs: Sequence[str] = ("rgb", "uv", "depth", "depth_map",
+                                         "depth_map_color", "center"),
+               config: RenderConfig = DEFAULT_CONFIG, as_uint8: bool = False, device=None):
+    """``render`` for host callers (the trainer's views, the viewer, the
+    benchmark's tracking renders): the counterpart of the JAX package's
+    ``render_jit``. On the card one CUDA graph per static call shape (bg,
+    W, H, outputs, config, as_uint8 and the inputs' capacity) in
+    ``RENDER_GRAPHS``; the arrays, the camera among them, are copied into
+    its buffers. Eager on the CPU and inside ``opt.graphs.disable_graphs``."""
+    arrays = _floats(dict(xyz=xyz, scale=scale, rotate=rotate, opacity=opacity, rgb=rgb,
+                          intr=intr, extr=extr))
+    static = dict(bg=float(bg), W=int(W), H=int(H), outputs=tuple(outputs), config=config,
+                  as_uint8=bool(as_uint8))
+    dev = resolve_device(device)
+    return RENDER_GRAPHS(tuple(static.values()), functools.partial(render, **static, device=dev),
+                         arrays, dev, config.band_devices)
+
+
+def render_traj_jit(xyz, scale, rotate, opacity, rgb, intr, extr, bg, W: int, H: int,
+                    point_num: int, line_scale: float = 1.0, point_scale: float = 2.0,
+                    config: RenderConfig = DEFAULT_CONFIG, n_actual=None,
+                    as_uint8: bool = False, device=None):
+    """``render_traj`` for host callers (the counterpart of
+    ``render_traj_jit``): one CUDA graph per static call shape in
+    ``RENDER_TRAJ_GRAPHS``; n_actual is data in its buffers, so one graph
+    serves every point count."""
+    arrays = _floats(dict(xyz=xyz, scale=scale, rotate=rotate, opacity=opacity, rgb=rgb,
+                          intr=intr, extr=extr))
+    n = arrays["xyz"].shape[0] if n_actual is None else n_actual
+    arrays["n_actual"] = torch.as_tensor(n, dtype=torch.int32)
+    static = dict(bg=float(bg), W=int(W), H=int(H), point_num=int(point_num),
+                  line_scale=float(line_scale), point_scale=float(point_scale), config=config,
+                  as_uint8=bool(as_uint8))
+    dev = resolve_device(device)
+    return RENDER_TRAJ_GRAPHS(tuple(static.values()),
+                              functools.partial(_render_traj_u8, **static, device=dev),
+                              arrays, dev, config.band_devices)
+
+
+def _render_traj_u8(as_uint8: bool, **kw):
+    img = render_traj(**kw)
+    return quantize_u8(img) if as_uint8 else img
+
+
 def render2img(rendered: torch.Tensor) -> np.ndarray:
     """(H, W, C) float -> uint8 numpy image, quantized on the device before
-    the host transfer."""
+    the host transfer (on the card a CUDA graph per shape,
+    ``QUANTIZE_GRAPHS``: the counterpart of ``_quantize_u8``)."""
     if rendered.dtype != torch.uint8:
-        rendered = (rendered.detach().clamp(0.0, 1.0) * 255).to(torch.uint8)
+        rendered = QUANTIZE_GRAPHS((), quantize_u8, {"x": rendered.detach()}, rendered.device)
     return rendered.cpu().numpy()

@@ -1,5 +1,4 @@
-"""The stage as CUDA graphs: the counterpart of the JAX package's compiled
-stage.
+"""CUDA graphs: the counterpart of the JAX package's compiled code.
 
 ``gflow_tpu/opt/train.py`` runs a stage as jitted ``lax.fori_loop``s split
 at the static densify events (:536-551) and its snapshot path as a
@@ -9,7 +8,13 @@ over ``jax.jit``). Here, on a CUDA device, ``opt.train.train_stage`` runs
 each piece of its loop body (an iteration, a rebinning, a snapshot) as the
 replay of a CUDA graph recorded once per static configuration, and densify
 runs eagerly between replays, as ``apply_densify`` runs between the
-``fori_loop``s.
+``fori_loop``s. The JAX package also compiles every device path that host
+code calls (``render_jit``, ``render_traj_jit``, the trainer's
+``_compiled_diag``, ``_compiled_traj_render``, ``_compiled_world2pix``,
+``_compiled_gather_project``, ``_quantize_u8``), one compile per static
+call shape in an lru cache; here each is a ``ForwardCache``: a pure
+forward function of fixed-shape inputs, recorded once per key and
+replayed.
 
 - ``StageGraphs`` is one cache entry: the static buffers of one key and the
   graphs recorded on them, by name. A graph is recorded at its first use
@@ -19,21 +24,32 @@ runs eagerly between replays, as ``apply_densify`` runs between the
   capture on the buffers themselves. A replay reads and writes the
   buffers in place; what the function returned is the graph's static
   output, rewritten by every replay.
-- ``GraphCache`` holds at most ``MAX_ENTRIES`` entries, the least recently
-  used leaving first, under ``stage_key``: the configuration, the capacity,
-  the device, the loss weights (numbers a capture bakes in) and
-  ``recording_context()``.
+- ``GraphCache`` holds at most ``maxsize`` entries, the least recently used
+  leaving first. A stage's key (``stage_key``) is the configuration, the
+  capacity, the device, the loss weights (numbers a capture bakes in) and
+  ``recording_context()``. A forward function's key is its static
+  arguments, the shapes and dtypes of its inputs (a capacity among them),
+  the device and ``recording_context()``; per-call values (a camera, a
+  point count) are data in its buffers, loaded before each replay. Its
+  outputs are cloned before the next replay can rewrite them, and the
+  graphs of one ``ForwardCache`` share one memory pool.
+- A graph may span several cards (the tile-band mode: ``cfg.render``'s
+  ``band_devices``): each other card's stream joins the capture through an
+  event, the card's allocations go to a pool of their own for the graph's
+  life, and autograd runs the backward on the capturing thread, on the
+  streams the forward used, so that every band's K3 and copies are
+  recorded too.
 - Launch accounting: a capture logs its kernel launches instead of
   counting them (``_build.recording``), and every replay counts the log
   into ``_build.LAUNCHES``; the warm-up's launches, on scratch data, are
   kept apart (``CapturedGraph.warmup_launches``). ``REPLAYS`` counts the
   replays per graph name.
-- ``disable_graphs()``, the counterpart of ``jax.disable_jit()``, runs the
-  stage eagerly on the card, for comparison runs. Nothing falls back to
-  it: a capture or a replay that fails raises.
+- ``disable_graphs()``, the counterpart of ``jax.disable_jit()``, runs
+  stages and forward functions eagerly on the card, for comparison runs.
+  Nothing falls back to it: a capture or a replay that fails raises.
 
-A replay runs the eager stage's kernels in its order, so under
-deterministic algorithms it gives the eager stage's numbers exactly.
+A replay runs the eager call's kernels in its order, so under
+deterministic algorithms it gives the eager call's numbers exactly.
 Outside them the gather's transpose (``index_add_``) sums with float
 atomics, and any two runs, replayed or eager, differ by rounding.
 """
@@ -56,8 +72,8 @@ _eager = 0  # depth of disable_graphs() blocks
 
 @contextlib.contextmanager
 def disable_graphs():
-    """Run stages eagerly on the card inside the block: the counterpart of
-    ``jax.disable_jit()``, for comparison runs."""
+    """Run stages and forward functions eagerly on the card inside the
+    block: the counterpart of ``jax.disable_jit()``, for comparison runs."""
     global _eager
     _eager += 1
     try:
@@ -66,12 +82,10 @@ def disable_graphs():
         _eager -= 1
 
 
-def graphed(dev: torch.device, cfg) -> bool:
-    """Whether a stage of `cfg` on `dev` runs as CUDA graphs: on a CUDA
-    device, outside ``disable_graphs()``, and not in the tile-band mode
-    (``cfg.render.band_devices``), whose bands run on several devices'
-    streams and stay eager."""
-    return dev.type == "cuda" and not cfg.render.band_devices and not _eager
+def graphed(dev: torch.device) -> bool:
+    """Whether work on `dev` runs as CUDA graphs: on a CUDA device, outside
+    ``disable_graphs()``."""
+    return dev.type == "cuda" and not _eager
 
 
 def recording_context() -> tuple:
@@ -86,12 +100,42 @@ def recording_context() -> tuple:
             torch.are_deterministic_algorithms_enabled(), torch.backends.cuda.matmul.allow_tf32)
 
 
+def _indexed(dev) -> torch.device:
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def stage_key(cfg, capacity: int, dev: torch.device, weights) -> tuple:
     """The cache key of a stage: what its graphs depend on besides the
     data in its buffers."""
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return (cfg, capacity, dev, weights, recording_context())
+    return (cfg, capacity, _indexed(dev), weights, recording_context())
+
+
+def tree_map(fn, tree):
+    """fn applied to every tensor of a (nested) NamedTuple, tuple or dict;
+    other leaves are kept."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        items = [tree_map(fn, x) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree
+
+
+def copy_into(dst, src):
+    """Copy every tensor of `src` into the tensor at the same place in `dst`."""
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+    elif isinstance(dst, dict):
+        for k in dst:
+            copy_into(dst[k], src[k])
+    elif isinstance(dst, tuple):
+        for d, s in zip(dst, src):
+            copy_into(d, s)
 
 
 @contextlib.contextmanager
@@ -111,15 +155,18 @@ def sync_check(dev: torch.device, mode: str = "error"):
 
 
 class CapturedGraph:
-    """``fn(buffers)`` recorded as one CUDA graph on `dev` (see the module
-    docstring). ``outputs`` is what fn returned under capture, rewritten by
-    every ``replay()``; ``launches`` the kernel launches of one replay;
-    ``capture_s`` and ``instantiate_s`` the seconds of the capture and of
-    its instantiation. The captured graph is kept (``graph.raw_cuda_graph()``
-    for a node count)."""
+    """``fn(buffers)`` recorded as one CUDA graph on `dev` and, where it
+    reaches them, on the cards of `devices` (see the module docstring);
+    `pool` is the memory pool of `dev` that the capture allocates from
+    (None: a pool of its own). ``outputs`` is what fn returned under
+    capture, rewritten by every ``replay()``; ``launches`` the kernel
+    launches of one replay; ``capture_s`` and ``instantiate_s`` the seconds
+    of the capture and of its instantiation. The captured graph is kept
+    (``graph.raw_cuda_graph()`` for a node count)."""
 
-    def __init__(self, fn, buffers, dev: torch.device):
-        self.dev = dev
+    def __init__(self, fn, buffers, dev: torch.device, devices=(), pool=None):
+        self.dev = dev = _indexed(dev)
+        others = [d for d in dict.fromkeys(map(_indexed, devices)) if d != dev]
         with torch.cuda.device(dev):
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
@@ -131,12 +178,40 @@ class CapturedGraph:
                     fn(scratch)
             torch.cuda.current_stream(dev).wait_stream(side)
             del scratch
+            # the other cards' allocations, kept for the graph's life
+            self.pools = {}
+            for d in others:
+                with torch.cuda.device(d):
+                    self.pools[d] = torch.cuda.MemPool()
             self.graph = torch.cuda.CUDAGraph(keep_graph=True)
             t0 = time.perf_counter()
-            with _build.recording() as self.launches, \
-                    torch.cuda.graph(self.graph, stream=torch.cuda.Stream(dev)), \
-                    sync_check(dev):
-                self.outputs = fn(buffers)
+            # capture_begin itself, not torch.cuda.graph: that one also
+            # synchronises and empties the allocator's cache, which the
+            # next eager calls would pay for
+            with _build.recording() as self.launches, contextlib.ExitStack() as stack:
+                stack.enter_context(torch.cuda.stream(torch.cuda.Stream(dev)))
+                self.graph.capture_begin(**({} if pool is None else {"pool": pool}),
+                                         capture_error_mode="thread_local")
+                stack.callback(self.graph.capture_end)
+                home = torch.cuda.current_stream(dev)
+                joined = []
+                if others:
+                    # a band's backward on the capturing thread, where its
+                    # allocations go to the card's pool
+                    stack.enter_context(torch.autograd.set_multithreading_enabled(False))
+                for d in others:
+                    s = torch.cuda.Stream(d)
+                    s.wait_stream(home)  # the card's stream joins the capture
+                    stack.enter_context(torch.cuda.stream(s))
+                    stack.enter_context(torch.cuda.use_mem_pool(self.pools[d], d))
+                    joined.append(s)
+                # setting a card's stream made that card current: fn runs
+                # with `dev` current, as it does eagerly
+                stack.enter_context(torch.cuda.device(dev))
+                with sync_check(dev):
+                    self.outputs = fn(buffers)
+                for s in joined:
+                    home.wait_stream(s)
             t1 = time.perf_counter()
             self.graph.instantiate()
             self.capture_s, self.instantiate_s = t1 - t0, time.perf_counter() - t1
@@ -148,8 +223,8 @@ class CapturedGraph:
 
 
 class Eager:
-    """The stage's pieces run as plain calls on `buffers` (the CPU, the
-    tile-band mode, ``disable_graphs()``)."""
+    """The stage's pieces run as plain calls on `buffers` (the CPU,
+    ``disable_graphs()``)."""
 
     def __init__(self, buffers):
         self.buffers = buffers
@@ -161,16 +236,20 @@ class Eager:
 class StageGraphs:
     """One cache entry: the static `buffers` of one key and the graphs
     recorded on them. ``self(name, fn)`` replays graph `name`, recording
-    fn(buffers) as it at its first use, and returns its outputs."""
+    fn(buffers) as it at its first use with ``capture(fn, buffers, dev,
+    devices, pool)``, and returns its outputs."""
 
-    def __init__(self, buffers, dev: torch.device, capture=CapturedGraph):
+    def __init__(self, buffers, dev: torch.device, capture=CapturedGraph, devices=(),
+                 pool=None):
         self.buffers, self.dev, self.capture = buffers, dev, capture
+        self.devices, self.pool = tuple(devices or ()), pool
         self.graphs: dict = {}
 
     def __call__(self, name: str, fn):
         graph = self.graphs.get(name)
         if graph is None:
-            graph = self.graphs[name] = self.capture(fn, self.buffers, self.dev)
+            graph = self.graphs[name] = self.capture(fn, self.buffers, self.dev, self.devices,
+                                                     self.pool)
         graph.replay()
         REPLAYS[name] += 1
         return graph.outputs
@@ -185,15 +264,84 @@ class GraphCache:
         self.maxsize, self.capture = maxsize, capture
         self.entries: collections.OrderedDict = collections.OrderedDict()
 
-    def entry(self, key, make_buffers, dev: torch.device) -> StageGraphs:
-        """The entry of `key`, made with make_buffers() if missing."""
+    def pool(self, dev: torch.device):
+        """The memory pool of `dev` that this cache's captures share (None:
+        each graph keeps a pool of its own)."""
+        return None
+
+    def entry(self, key, make_buffers, dev: torch.device, devices=()) -> StageGraphs:
+        """The entry of `key`, made with make_buffers() if missing; its
+        graphs span `dev` and the cards of `devices`."""
         if key in self.entries:
             self.entries.move_to_end(key)
             return self.entries[key]
-        entry = self.entries[key] = StageGraphs(make_buffers(), dev, self.capture)
+        entry = self.entries[key] = StageGraphs(make_buffers(), dev, self.capture, devices,
+                                                self.pool(dev))
         if len(self.entries) > self.maxsize:
             self.entries.popitem(last=False)
         return entry
+
+
+class ForwardBuffers:
+    """The static inputs of a forward graph: copies on the card of one
+    call's input tensors, into which each call's inputs are loaded."""
+
+    def __init__(self, inputs: dict, dev: torch.device):
+        self.inputs = tree_map(lambda x: x.to(dev, copy=True), inputs)
+
+    def load(self, inputs: dict) -> None:
+        copy_into(self.inputs, inputs)
+
+    def scratch(self) -> "ForwardBuffers":
+        return self  # a forward function reads its inputs only
+
+
+class ForwardCache(GraphCache):
+    """``self(key, fn, inputs, dev)`` is fn(**inputs) on `dev`: on a CUDA
+    device the replay of graph `name`, recorded once per `key` (fn's
+    static arguments) and input shapes; eagerly on the CPU and inside
+    ``disable_graphs()``. `inputs` is a dict of tensors (or tuples of
+    them) on any device; a call loads them into the entry's buffers
+    (device-to-device copies, or one host-to-device copy each, outside the
+    capture and the replay) and returns fn's outputs cloned, so that the
+    next replay leaves them as they are. The graphs share one memory pool
+    per device: their inputs live outside it and their outputs are cloned
+    before another graph of the cache replays."""
+
+    def __init__(self, name: str, maxsize: int, capture=CapturedGraph):
+        super().__init__(maxsize, capture)
+        self.name = name
+        self.pools: dict = {}
+
+    def pool(self, dev: torch.device):
+        """The graph memory pool of `dev` that the cache's graphs share. A
+        pool lives while a graph recorded into it does, so the cache keeps
+        one of its own there, a single fill, for as long as it lives: a
+        graph recorded after an eviction allocates from the same pool."""
+        dev = _indexed(dev)
+        if dev.type != "cuda":
+            return None
+        if dev not in self.pools:
+            keeper = torch.cuda.CUDAGraph()
+            with torch.cuda.device(dev), torch.cuda.stream(torch.cuda.Stream(dev)):
+                keeper.capture_begin(pool=torch.cuda.graph_pool_handle(),
+                                     capture_error_mode="thread_local")
+                torch.zeros(1, device=dev)
+                keeper.capture_end()
+            self.pools[dev] = keeper
+        return self.pools[dev].pool()
+
+    def __call__(self, key, fn, inputs: dict, dev: torch.device, devices=()):
+        if not graphed(dev):
+            return fn(**tree_map(lambda x: x.to(dev), inputs))
+        shapes = tuple(tree_map(lambda x: (tuple(x.shape), x.dtype), v)
+                       for v in inputs.values())
+        key = (key, tuple(inputs), shapes, _indexed(dev), recording_context())
+        entry = self.entry(key, lambda: ForwardBuffers(inputs, dev), dev, devices)
+        entry.buffers.load(inputs)
+        with sync_check(dev):
+            out = entry(self.name, lambda b: fn(**b.inputs))
+            return tree_map(torch.clone, out)
 
 
 # the cache of stages run without a cache of their own (train_stage's graphs=None)

@@ -48,6 +48,7 @@ from ..ops.render import (DEFAULT_CONFIG, RenderConfig, bin_with, composite,
                           composite_with_coverage, render)
 from ..viz.colormap import apply_float_colormap
 from . import graphs as stage_graphs
+from .graphs import copy_into, tree_map
 from .densify import densify_by_pixels, reset_opt_after_densify
 from .losses import LossWeights, compute_losses, flow_prior_terms
 from .state import FrameState, Params, Targets, adam_update, init_opt_state
@@ -281,31 +282,6 @@ def _to(tup, dev):
     return type(tup)(*(x.to(dev) for x in tup))
 
 
-def _map(fn, tree):
-    """fn applied to every tensor of a (nested) NamedTuple, tuple or dict;
-    other leaves are kept."""
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        items = [_map(fn, x) for x in tree]
-        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
-    return tree
-
-
-def _copy_into(dst, src):
-    """Copy every tensor of `src` into the tensor at the same place in `dst`."""
-    if isinstance(dst, torch.Tensor):
-        dst.copy_(src)
-    elif isinstance(dst, dict):
-        for k in dst:
-            _copy_into(dst[k], src[k])
-    elif isinstance(dst, tuple):
-        for d, s in zip(dst, src):
-            _copy_into(d, s)
-
-
 class _StageBuffers:
     """Every tensor an iteration reads or writes, at addresses that stay put
     for a CUDA graph: what the loop carries (``CARRIED``: the parameters,
@@ -335,8 +311,8 @@ class _StageBuffers:
                 torch.zeros((), dtype=torch.int32, device=dev))
         # init_opt_state's m and v are one tensor: cloned apart, since the
         # loop writes each in place
-        return cls(**_map(torch.clone, inputs),
-                   opt=_map(torch.clone, init_opt_state(inputs["params"])),
+        return cls(**tree_map(torch.clone, inputs),
+                   opt=tree_map(torch.clone, init_opt_state(inputs["params"])),
                    it=torch.zeros(1, dtype=torch.int64, device=dev),
                    losses=torch.zeros(cfg.iterations, device=dev), bins=bins)
 
@@ -344,13 +320,13 @@ class _StageBuffers:
         """Start a stage on these buffers: the inputs copied in, Adam's
         state, the counter and the trace at zero."""
         for k, v in inputs.items():
-            _copy_into(getattr(self, k), v)
+            copy_into(getattr(self, k), v)
         for t in (*self.opt.m, *self.opt.v, self.opt.step, self.it, self.losses):
             t.zero_()
 
     def scratch(self) -> "_StageBuffers":
         """A copy whose carried tensors are clones (a graph's warm-up)."""
-        return _StageBuffers(**{k: _map(torch.clone, v) if k in self.CARRIED else v
+        return _StageBuffers(**{k: tree_map(torch.clone, v) if k in self.CARRIED else v
                                 for k, v in vars(self).items()})
 
 
@@ -367,17 +343,17 @@ def _iteration(buf: _StageBuffers, cfg: StageConfig, weights: LossWeights):
     lr = buf.lrs.index_select(0, buf.it)[0]
     params, opt = adam_update(Params(*(x.detach() for x in leaves)), grads, buf.opt,
                               lr[0], lr[1], lr[2])
-    _copy_into(buf.params, params)
-    _copy_into(buf.opt, opt)
+    copy_into(buf.params, params)
+    copy_into(buf.opt, opt)
     at_i = torch.arange(cfg.iterations, device=buf.it.device) == buf.it
     buf.losses.copy_(torch.where(at_i, total.detach(), buf.losses))
     buf.it += 1
-    return _map(torch.Tensor.detach, aux)
+    return tree_map(torch.Tensor.detach, aux)
 
 
 def _rebin(buf: _StageBuffers, cfg: StageConfig):
     """The tile lists from the current geometry, into buf.bins."""
-    _copy_into(buf.bins, _compute_bins(buf.params, buf.n_alive, buf.intr, cfg))
+    copy_into(buf.bins, _compute_bins(buf.params, buf.n_alive, buf.intr, cfg))
     return {}
 
 
@@ -401,9 +377,9 @@ def _densify(buf: _StageBuffers, cfg: StageConfig, dyn: StageDynamics, kind: str
     params, n_alive, _ = densify_by_pixels(
         buf.params, buf.n_alive, emap, mask, buf.targets.image, buf.targets.depth, buf.intr,
         pose_to_extr(buf.params.pose), dyn.num_points, percent, u)
-    _copy_into(buf.params, params)
+    copy_into(buf.params, params)
     buf.n_alive.copy_(n_alive)
-    _copy_into(buf.opt, reset_opt_after_densify(buf.opt, params))
+    copy_into(buf.opt, reset_opt_after_densify(buf.opt, params))
 
 
 @torch.no_grad()
@@ -425,8 +401,8 @@ def train_stage(params: Params, state: FrameState, targets: Targets, intr,
     """Run one optimization stage on `device` (``cuda`` unless the caller
     passes another). `gen` draws the densify uniforms. On a CUDA device the
     loop runs as CUDA graphs kept in `graphs` (None: the process's
-    ``opt.graphs.DEFAULT_CACHE``); eagerly on the CPU, in the tile-band mode
-    and inside ``opt.graphs.disable_graphs()``. Returns (params, state,
+    ``opt.graphs.DEFAULT_CACHE``), over every card of the tile-band mode;
+    eagerly on the CPU and inside ``opt.graphs.disable_graphs()``. Returns (params, state,
     info); info["loss_trace"] holds every iteration's total loss and, on
     the snapshot path, info["snapshots"] the uint8 stacks (n_chunks, H, W,
     3) under "rgb", "depth_map" and "center"."""
@@ -440,10 +416,10 @@ def train_stage(params: Params, state: FrameState, targets: Targets, intr,
     inputs = dict(params=params, state=state, targets=targets, intr=intr,
                   n_alive=state.n_alive, lrs=lr_schedule(cfg, dyn).to(dev),
                   flow_prior=flow_prior_terms(state, targets, cfg.camera_only, cfg.W, cfg.H))
-    if stage_graphs.graphed(dev, cfg):
+    if stage_graphs.graphed(dev):
         cache = stage_graphs.DEFAULT_CACHE if graphs is None else graphs
         run = cache.entry(stage_graphs.stage_key(cfg, params.capacity, dev, dyn.weights),
-                          lambda: _StageBuffers.of(inputs, cfg), dev)
+                          lambda: _StageBuffers.of(inputs, cfg), dev, cfg.render.band_devices)
         run.buffers.load(inputs)
         out = torch.clone  # the next stage of this key rewrites buffers and outputs
         checked = stage_graphs.sync_check(dev)
@@ -498,7 +474,7 @@ def train_stage(params: Params, state: FrameState, targets: Targets, intr,
                    "tile_overflow": torch.zeros((), device=dev),
                    "metrics": {k: torch.zeros((), device=dev) for k in
                                ("rgb", "depth", "var", "scale", "still", "flow", "total")}}
-        aux = _map(out, aux)
+        aux = tree_map(out, aux)
         metrics = aux["metrics"]
     else:
         # one final forward (no grad) for the stage's output render + uv
@@ -506,8 +482,8 @@ def train_stage(params: Params, state: FrameState, targets: Targets, intr,
             _, aux = _forward(buf.params, buf.n_alive, buf.state, buf.targets, buf.intr,
                               dyn.weights, cfg, flow_prior=buf.flow_prior,
                               diag_t_final=cfg.telemetry_t_final)
-        metrics = _map(out, metrics) if metrics is not None else aux["metrics"]
-    params, n_alive = _map(out, buf.params), out(buf.n_alive)
+        metrics = tree_map(out, metrics) if metrics is not None else aux["metrics"]
+    params, n_alive = tree_map(out, buf.params), out(buf.n_alive)
 
     if not cfg.camera_only:
         state = finalize_stage(aux["uv"], aux["depth"], params, state,

@@ -13,7 +13,13 @@ The device work (rendering, losses, Adam, densify) is
 runs as CUDA graphs, kept in the trainer's own ``opt.graphs.GraphCache``
 (``self.graphs``, the counterpart of the JAX trainer's ``_compiled_stage``
 cache): every frame replays the graphs its stage configuration recorded;
-a K escalation or a capacity growth makes a new key. Every stage pulls its
+a K escalation or a capacity growth makes a new key. The host-called
+device paths are CUDA graphs too, one per static call shape: the
+diagnostic views, the trajectory image, ``project_points`` and
+``gather_project`` in the trainer's ``forward_graphs`` (the counterparts
+of ``_compiled_diag``, ``_compiled_traj_render``, ``_compiled_world2pix``
+and ``_compiled_gather_project``, with their cache sizes), and
+``render_views`` through ``ops.render.render_jit``. Every stage pulls its
 host-side results in one batch (``_host``), and images leave the device
 as uint8. Two departures from the JAX package, both its intent: a target
 map is uploaded once per ``set_gt_*`` call (the JAX package caches the
@@ -25,6 +31,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 from datetime import datetime
 from pathlib import Path
@@ -36,9 +43,9 @@ from .. import resolve_device
 from ..core.camera import default_intrinsics, extr_to_pose, pose_to_extr, world2pix
 from ..core.io import imwrite
 from ..core.scene import activate, activate_inv
-from ..ops.render import RenderConfig, render, render_traj
+from ..ops.render import RenderConfig, quantize_u8, render, render_jit, render_traj
 from ..opt.initialize import init_params_from_image
-from ..opt.graphs import GraphCache
+from ..opt.graphs import ForwardCache, GraphCache
 from ..opt.losses import LossWeights
 from ..opt.state import Params, Targets, init_frame_state
 from ..opt.train import StageConfig, StageDynamics, train_stage
@@ -71,6 +78,59 @@ def _unit(q):
 
 def _pow2ceil(n: int) -> int:
     return 1 << max(0, int(n) - 1).bit_length()
+
+
+# the trainer's host-called device paths as CUDA graphs, with the JAX
+# package's cache sizes (gflow_tpu/pipeline/trainer.py:61-155)
+FORWARD_GRAPHS = {"diag": 16, "traj": 4, "world2pix": 1, "gather_project": 1}
+
+
+def _diag(params: Params, n_alive, last_num, still_mask, intr, bg: float, W: int, H: int,
+          config: RenderConfig) -> dict:
+    """The post-stage diagnostic renders in one call (the counterpart of
+    ``_compiled_diag``; trainer.py:627-697): activation, the full scene's
+    rgb/center/depth_map_color and the still-only and move-only subsets,
+    selected by masking opacity as the original's array slicing selects
+    rows (still: i < last_num with still_mask; move: i < last_num
+    without), quantized to uint8."""
+    C, dev = params.capacity, intr.device
+    alive = (torch.arange(C, device=dev) < n_alive)[:, None]
+    xyz, scale = params.xyz, torch.abs(params.scale)
+    rotate, rgb = activate("rotate", params.rotate), activate("rgb", params.rgb)
+    opacity = activate("opacity", params.opacity) * alive
+    args = (intr, pose_to_extr(params.pose), bg, W, H)
+    out = dict(render(xyz, scale, rotate, opacity, rgb, *args,
+                      ("rgb", "center", "depth_map_color"), config, as_uint8=True, device=dev))
+    in_prev = torch.arange(C, device=dev) < last_num
+    for name, sel in (("still", in_prev & still_mask), ("move", in_prev & ~still_mask)):
+        sub = render(xyz, scale, rotate, opacity * sel[:, None], rgb, *args, ("rgb", "center"),
+                     config, as_uint8=True, device=dev)
+        out[name + "_rgb"], out[name + "_center"] = sub["rgb"], sub["center"]
+    return out
+
+
+def _traj_render(xyz, opacity, rgb, intr, pose, n_actual, bg: float, W: int, H: int,
+                 point_num: int, line_scale: float, point_scale: float, config: RenderConfig,
+                 as_uint8: bool):
+    """The padded trajectory line set drawn from the camera of `pose` (the
+    counterpart of ``_compiled_traj_render``): the constant scale and
+    rotation columns are made on the device, n_actual is a 0-d tensor."""
+    cap, dev = xyz.shape[0], xyz.device
+    scale = torch.full((cap, 3), 1e-6, dtype=torch.float32, device=dev)
+    rotate = torch.zeros((cap, 4), dtype=torch.float32, device=dev)
+    rotate[:, 0] = 1.0
+    img = render_traj(xyz, scale, rotate, opacity, rgb, intr, pose_to_extr(pose), bg, W, H,
+                      point_num, line_scale, point_scale, config, n_actual, device=dev)
+    return quantize_u8(img) if as_uint8 else img
+
+
+def _world2pix(points, intr, pose):
+    return world2pix(points, intr, pose_to_extr(pose))
+
+
+def _gather_project(xyz, index, intr, pose):
+    sel = xyz[index]
+    return sel, world2pix(sel, intr, pose_to_extr(pose))[0]
 
 
 def _gen_line_set(xyz1: np.ndarray, xyz2: np.ndarray, rgb: np.ndarray):
@@ -128,6 +188,9 @@ class GFlowTrainer:
         # the densify uniforms
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self.graphs = GraphCache()  # the stages' CUDA graphs, per stage configuration
+        # the renders and projections' CUDA graphs, per static call shape
+        self.forward_graphs = {k: ForwardCache(k, n) for k, n in FORWARD_GRAPHS.items()}
+        self._gather_key = self._gather_index = None  # the query set, uploaded once
 
         if capacity is None:
             # num_points + 50% densify headroom, rounded up to 1024; densify
@@ -473,35 +536,24 @@ class GFlowTrainer:
 
     @torch.no_grad()
     def _diag_views(self) -> dict:
-        """The post-stage diagnostic renders (trainer.py:627-697) as uint8
-        host images: full-scene rgb/center/depth_map_color, and the
-        still-only and move-only subsets, selected by masking opacity as
-        the original's array slicing selects rows (still: i < last_num with
-        still_mask; move: i < last_num without)."""
-        xyz, scale, rotate, opacity, rgb = self._activated()
-        extr = self.get_extr()
-        args = (self.intr, extr, self.bg, self.W, self.H)
-        full = render(xyz, scale, rotate, opacity, rgb, *args,
-                      ("rgb", "center", "depth_map_color"), self.render_config,
-                      as_uint8=True, device=self.device)
-        out = dict(full)
-        in_prev = torch.arange(self.capacity, device=self.device) < self.state.last_num
-        for name, sel in (("still", in_prev & self.state.still_mask),
-                          ("move", in_prev & ~self.state.still_mask)):
-            sub = render(xyz, scale, rotate, opacity * sel[:, None], rgb, *args,
-                         ("rgb", "center"), self.render_config, as_uint8=True,
-                         device=self.device)
-            out[name + "_rgb"], out[name + "_center"] = sub["rgb"], sub["center"]
-        return _host(out)
+        """The post-stage diagnostic renders (``_diag``) as uint8 host
+        images, one CUDA graph per (bg, W, H, render config, capacity)."""
+        inputs = dict(params=self.params, n_alive=self.state.n_alive,
+                      last_num=self.state.last_num, still_mask=self.state.still_mask,
+                      intr=self.intr)
+        static = dict(bg=self.bg, W=self.W, H=self.H, config=self.render_config)
+        return _host(self.forward_graphs["diag"](
+            tuple(static.values()), functools.partial(_diag, **static), inputs, self.device,
+            self.render_config.band_devices))
 
     @torch.no_grad()
     def render_views(self, outputs=("rgb", "center", "depth_map_color"), as_uint8=False):
         """Render the current scene from the current camera: a dict of
-        tensors on the trainer's device (see ops.render.render)."""
+        tensors on the trainer's device (see ops.render.render_jit)."""
         xyz, scale, rotate, opacity, rgb = self._activated()
-        return render(xyz, scale, rotate, opacity, rgb, self.intr, self.get_extr(),
-                      self.bg, self.W, self.H, outputs, self.render_config,
-                      as_uint8=as_uint8, device=self.device)
+        return render_jit(xyz, scale, rotate, opacity, rgb, self.intr, self.get_extr(),
+                          self.bg, self.W, self.H, outputs, self.render_config,
+                          as_uint8=as_uint8, device=self.device)
 
     def _save_stage_images(self, views, ckpt_name, subsets=None):
         """Queue the stage's diagnostic PNGs on the background writer."""
@@ -532,18 +584,25 @@ class GFlowTrainer:
     @torch.no_grad()
     def project_points(self, points):
         """World points -> (uv (N, 2), depth (N, 1)) NumPy arrays through the
-        current camera."""
-        pts = torch.from_numpy(np.array(points, np.float32)).to(self.device)
-        uv, depth = world2pix(pts, self.intr, self.get_extr())
+        current camera (the counterpart of ``_compiled_world2pix``)."""
+        inputs = dict(points=torch.from_numpy(np.array(points, np.float32)), intr=self.intr,
+                      pose=self.params.pose)
+        uv, depth = self.forward_graphs["world2pix"]((), _world2pix, inputs, self.device)
         return uv.cpu().numpy(), depth.cpu().numpy()
 
     @torch.no_grad()
     def gather_project(self, index):
         """(xyz, uv) NumPy arrays of a fixed query subset; only the selected
-        rows leave the device."""
-        idx = torch.as_tensor(np.asarray(index, np.int64), device=self.device)
-        sel = self.params.xyz[idx]
-        uv, _ = world2pix(sel, self.intr, self.get_extr())
+        rows leave the device (the counterpart of ``_compiled_gather_project``;
+        the index set is uploaded once per set, as the JAX trainer caches its
+        upload)."""
+        index = np.asarray(index, np.int64)
+        if self._gather_key != index.tobytes():
+            self._gather_key = index.tobytes()
+            self._gather_index = torch.from_numpy(index).to(self.device)
+        inputs = dict(xyz=self.params.xyz, index=self._gather_index, intr=self.intr,
+                      pose=self.params.pose)
+        sel, uv = self.forward_graphs["gather_project"]((), _gather_project, inputs, self.device)
         return sel.cpu().numpy(), uv.cpu().numpy()
 
     # ------------------------------------------------------------------
@@ -731,8 +790,7 @@ class GFlowTrainer:
         out_center = views["center"] if need_center_depth else None
         out_depth = views["depth_map_color"] if need_center_depth else None
 
-        out_traj = _host((self.traj_image(num_traj, line_scale, point_scale)
-                          .clamp(0.0, 1.0) * 255).to(torch.uint8))
+        out_traj = _host(self.traj_image(num_traj, line_scale, point_scale, as_uint8=True))
         # screen blending (trainer.py:798-806)
         a1 = out_img.astype(np.float32) / 255
         a2 = out_traj.astype(np.float32) / 255
@@ -742,11 +800,14 @@ class GFlowTrainer:
         return out_img, out_center, out_depth, out_traj, upon
 
     @torch.no_grad()
-    def traj_image(self, point_num: int, line_scale: float, point_scale: float):
+    def traj_image(self, point_num: int, line_scale: float, point_scale: float,
+                   as_uint8: bool = False):
         """The trajectory line set rendered from the current camera, (H, W,
-        3) float on the trainer's device: padded to its fixed capacity
-        (padding behind the camera at opacity 0), the last point_num
-        entries drawn as points."""
+        3) on the trainer's device, float or, with as_uint8, quantized:
+        padded to its fixed capacity (padding behind the camera at opacity
+        0), the last point_num entries drawn as points. One CUDA graph per
+        static call shape and capacity (``_traj_render``); the line set and
+        its count are data."""
         t, cap = self._traj, self._traj_cap
         nt = len(t["xyz"])
         xyz_p = np.zeros((cap, 3), np.float32)
@@ -756,9 +817,12 @@ class GFlowTrainer:
         op_p[:nt] = t["opacity"]
         rgb_p = np.zeros((cap, 3), np.float32)
         rgb_p[:nt] = t["rgb"]
-        return render_traj(
-            xyz_p, np.full((cap, 3), 1e-6, np.float32),
-            np.tile(np.asarray([1.0, 0.0, 0.0, 0.0], np.float32), (cap, 1)), op_p, rgb_p,
-            self.intr, self.get_extr(), float(self.bg), self.W, self.H, point_num,
-            float(line_scale), float(point_scale), self._traj_cfg, n_actual=nt,
-            device=self.device)
+        inputs = dict(xyz=torch.from_numpy(xyz_p), opacity=torch.from_numpy(op_p),
+                      rgb=torch.from_numpy(rgb_p), intr=self.intr, pose=self.params.pose,
+                      n_actual=torch.tensor(nt, dtype=torch.int32))
+        static = dict(bg=float(self.bg), W=self.W, H=self.H, point_num=int(point_num),
+                      line_scale=float(line_scale), point_scale=float(point_scale),
+                      config=self._traj_cfg, as_uint8=bool(as_uint8))
+        return self.forward_graphs["traj"](
+            tuple(static.values()), functools.partial(_traj_render, **static), inputs,
+            self.device, self._traj_cfg.band_devices)

@@ -6,12 +6,14 @@ server-side and pushes JPEGs).
 Counterpart of ``gflow_tpu/viz/viewer.py``. viser is not a dependency, so
 this is a self-contained stdlib HTTP server: the embedded page sends
 camera state and the server renders through the standard rasterizer
-(``ops.render.render`` at ``DEFAULT_CONFIG``, on ``cuda`` unless the caller
-passes ``device="cpu"``) and streams JPEGs. Same surface:
+(``ops.render.render_jit`` at ``DEFAULT_CONFIG``, on ``cuda`` unless the
+caller passes ``device="cpu"``; on the card a CUDA graph per capacity) and
+streams JPEGs. Same surface:
 `python -m gflow_tpu_torch.cli.viewer --folder <logdir> --port 8080`.
 
 Every checkpoint's activated Gaussians stay on the device. The server's
-handler threads render under one lock, which serializes the device work,
+handler threads render under one lock, which serializes the device work
+(graph captures included),
 and under ``torch.no_grad()``, which is per thread in PyTorch (a thread
 that did not set it would build an autograd graph on every request). The
 orbit mode centres on each frame's own live points.
@@ -257,14 +259,16 @@ class ViewerState:
     @torch.no_grad()
     def render_rgb(self, frame: int, az: float, el: float, radius: float,
                    follow: bool, pose=None) -> torch.Tensor:
-        """The request's (H, W, 3) float image on the device."""
-        from ..ops.render import DEFAULT_CONFIG, render
+        """The request's (H, W, 3) float image on the device: ``render_jit``,
+        one CUDA graph per capacity on the card, the frame's tensors and the
+        camera copied into its buffers."""
+        from ..ops.render import DEFAULT_CONFIG, render_jit
 
         f = self.frames[frame % len(self.frames)]
-        extr = torch.from_numpy(self.view_extr(frame, az, el, radius, follow, pose))
-        return render(f["xyz"], f["scale"], f["rotate"], f["opacity"], f["rgb"],
-                      f["intr"], extr, 0.0, self.W, self.H, ("rgb",), DEFAULT_CONFIG,
-                      device=self.device)["rgb"]
+        extr = self.view_extr(frame, az, el, radius, follow, pose)
+        return render_jit(f["xyz"], f["scale"], f["rotate"], f["opacity"], f["rgb"],
+                          f["intr"], extr, 0.0, self.W, self.H, ("rgb",), DEFAULT_CONFIG,
+                          device=self.device)["rgb"]
 
     @torch.no_grad()
     def render(self, frame: int, az: float, el: float, radius: float,

@@ -8,8 +8,10 @@ Tolerances: images atol 5e-4 / rtol 1e-3 (tests/test_pallas.py:42-44);
 coverage support exact where the plain coverage is clear of 0 by 1e-3;
 gradients normalized by max |ref| per column, atol 5e-4; K3 bitwise
 repeatable (no float atomics); K4 (the binning tail) exact, on the
-sorted-stream cases of tests/test_torch_tail_cases.py. The stage run as
-CUDA graphs equals the eager stage exactly, deterministic algorithms on."""
+sorted-stream cases of tests/test_torch_tail_cases.py. The stage, banded
+or not, and the host-called renders and projections run as CUDA graphs
+equal the same calls eager exactly, deterministic algorithms on; a banded
+stage equals the unbanded one to 1e-6."""
 import contextlib
 
 import numpy as np
@@ -712,3 +714,146 @@ def test_failed_capture_raises(dev, monkeypatch):
     with pytest.raises(RuntimeError):
         graph_stage(dev, "camera", stage_graphs.GraphCache())
     torch.cuda.synchronize()
+
+
+def flat_arrays(tree):
+    if isinstance(tree, dict):
+        return [a for k in sorted(tree) for a in flat_arrays(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [a for x in tree for a in flat_arrays(x)]
+    if isinstance(tree, torch.Tensor):
+        tree = tree.detach().cpu().numpy()
+    return [np.asarray(tree, np.float64)]
+
+
+def graph_vs_eager(call, checked=False):
+    """call() as CUDA graphs (under sync_check("error") with checked) and
+    inside disable_graphs(), deterministic algorithms on: 0 apart, the same
+    kernel launches. Returns the graphed run's replays per graph name."""
+    from gflow_tpu_torch.opt import graphs as stage_graphs
+
+    runs = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for graphed in (True, False):
+            _build.LAUNCHES.clear()
+            stage_graphs.REPLAYS.clear()
+            with contextlib.ExitStack() as stack:
+                if not graphed:
+                    stack.enter_context(stage_graphs.disable_graphs())
+                elif checked:
+                    stack.enter_context(stage_graphs.sync_check(torch.device("cuda")))
+                out = call()
+            torch.cuda.synchronize()
+            runs.append((flat_arrays(out), dict(_build.LAUNCHES), dict(stage_graphs.REPLAYS)))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (g, l_g, r_g), (e, l_e, r_e) = runs
+    assert [a.shape for a in g] == [a.shape for a in e]
+    assert all(np.array_equal(a, b) for a, b in zip(g, e))
+    assert l_g == l_e and set(l_g) >= {"bin_tail", "composite_fwd"}, (l_g, l_e)
+    assert r_g and not r_e, (r_g, r_e)
+    return r_g
+
+
+def test_graphed_renders_equal_eager(dev):
+    """render_jit, render_traj_jit at two counts (one graph), render2img,
+    and a fitted trainer's diagnostic views, trajectory image, project_points
+    and gather_project, each as CUDA graphs against eager: 0 apart, the
+    same launches."""
+    from gflow_tpu_torch.ops.render import RenderConfig, render2img, render_jit, render_traj_jit
+    from gflow_tpu_torch.pipeline.trainer import GFlowTrainer
+
+    args = _traj_scene(dev)
+    cfg = RenderConfig(max_per_tile=128, max_tiles_per_gaussian=8)
+    assert graph_vs_eager(lambda: render_jit(*args, 0.1, 96, 64, config=cfg)) == {"render": 1}
+    assert graph_vs_eager(lambda: [render_traj_jit(*args, 0.0, 96, 64, 16, 0.5, 2.0, cfg,
+                                                   n_actual=n) for n in (300, 120)]) == {
+        "render_traj": 2}
+    img = render_jit(*args, 0.1, 96, 64, ("rgb",), cfg)["rgb"]
+    graph_vs_eager(lambda: (render2img(img), render_jit(*args, 0.1, 96, 64, ("rgb",), cfg)))
+
+    rng = np.random.default_rng(12)
+    Hd, Wd = 64, 96
+    yy, xx = np.meshgrid(np.linspace(0, 1, Hd), np.linspace(0, 1, Wd), indexing="ij")
+    image = np.clip(np.stack([xx, yy, (xx + yy) / 2], -1) + rng.normal(0, 0.05, (Hd, Wd, 3)),
+                    0.02, 0.98).astype(np.float32)
+    depth = (1.5 + xx + rng.uniform(0, 1e-3, (Hd, Wd))).astype(np.float32)
+    tr = GFlowTrainer(image, depth, num_points=800, make_logs=False)
+    tr.init_gaussians_from_image()
+    tr.train(iterations=4, lr=1e-2, lambda_depth=0.1)
+    query = np.arange(0, 800, 50)
+    tr.eval(query, need_center_depth=False)  # the trajectory line set's first frame
+    tr.train(iterations=4, lr=1e-2, lambda_depth=0.1)
+    tr.eval(query, need_center_depth=False)
+    assert graph_vs_eager(tr._diag_views) == {"diag": 1}
+    assert graph_vs_eager(lambda: (tr.traj_image(16, 0.1, 0.3),
+                                   tr.traj_image(16, 0.1, 0.3, as_uint8=True))) == {"traj": 2}
+    pts = tr.params.xyz[:100].cpu().numpy()
+    graph_vs_eager(lambda: (tr.project_points(pts), tr.gather_project(query),
+                            tr.render_views()))
+
+
+def test_two_class_render_captures_under_sync_check(dev):
+    """The benchmark's tracking render after two-class binning (M = 48,
+    small grid 8, K = 128) records and replays as a CUDA graph with every
+    synchronising call an error, and equals the eager render."""
+    from gflow_tpu_torch.ops.render import RenderConfig, render_jit
+
+    rng = np.random.default_rng(13)
+    n, Wd, Hd = 3000, 320, 192
+    z = rng.uniform(2, 5, n)
+    big = rng.uniform(size=(n, 1)) < 0.05
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    arrays = (t(np.c_[rng.uniform(-0.8, 0.8, (n, 2)) * z[:, None], z]),
+              t(rng.uniform(0.01, 0.04, (n, 3)) * np.where(big, 8.0, 1.0)),
+              t(rng.normal(size=(n, 4))), t(rng.uniform(0.3, 0.95, (n, 1))),
+              t(rng.uniform(0, 1, (n, 3))), t([240.0, 240.0, Wd / 2, Hd / 2]),
+              torch.eye(3, 4, device=dev))
+    cfg = RenderConfig(max_per_tile=128, max_tiles_per_gaussian=48, small_tiles_per_gaussian=8)
+    call = lambda: render_jit(*arrays, 0.0, Wd, Hd, ("uv", "depth", "depth_map", "acc"), cfg)
+    assert graph_vs_eager(call, checked=True) == {"render": 1}
+
+
+def banded_graph_stage(dev, bands, seed=0):
+    from gflow_tpu_torch.ops.render import RenderConfig
+    from gflow_tpu_torch.opt.losses import LossWeights
+    from gflow_tpu_torch.opt.train import StageConfig, StageDynamics, train_stage
+
+    params, state, targets, intr = graph_stage_inputs(dev, seed)
+    cfg = StageConfig(W=96, H=64, iterations=8, densify_occ=True, densify_interval=4,
+                      densify_times=1, max_densify=64,
+                      render=RenderConfig(max_per_tile=64, max_tiles_per_gaussian=16,
+                                          band_devices=bands))
+    dyn = StageDynamics(lr=1e-2, lr_camera=1e-3, num_points=800, densify_occ_percent=0.5,
+                        weights=LossWeights(rgb=1.0, depth=0.1, var=50.0))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return train_stage(params, state, targets, intr, gen, cfg, dyn)
+
+
+def check_banded_stage_graphs(dev, bands):
+    """The banded stage as CUDA graphs against eager, 0 apart with the same
+    launches and a step replay per iteration; and against the unbanded
+    stage to 1e-6."""
+    replays = graph_vs_eager(lambda: flat_outputs(banded_graph_stage(dev, bands)))
+    assert replays == {"step": 8}, replays
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        banded = flat_outputs(banded_graph_stage(dev, bands))
+        unbanded = flat_outputs(banded_graph_stage(dev, None))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for k in ("params.xyz", "params.rgb", "info.loss_trace."):
+        torch.testing.assert_close(banded[k], unbanded[k], atol=1e-6, rtol=1e-6)
+
+
+def test_banded_stage_on_one_card_replays_graphs(dev):
+    check_banded_stage_graphs(dev, (torch.device("cuda", 0),) * 4)
+
+
+def test_banded_stage_over_cards_replays_graphs(dev):
+    """The bands over every visible card, round robin: one capture spans
+    the cards' streams."""
+    two_cards()
+    n = torch.cuda.device_count()
+    check_banded_stage_graphs(dev, tuple(torch.device("cuda", b % n) for b in range(4)))

@@ -128,3 +128,37 @@ def test_dryrun_multigpu_runs():
     out = dryrun_multigpu(4, "cpu")
     assert np.isfinite(out["step_loss"]) and np.isfinite(out["stage_loss"])
     assert out["n_alive"] > 512 - 64
+
+
+@pytest.mark.parametrize("camera_only", [False, True])
+def test_banded_stage_graph_runner_equals_eager(inputs, camera_only, monkeypatch):
+    """The banded stage (4 CPU bands) through the graph runner, with
+    test_torch_stage_graph's fake capture standing in for the card, against
+    the same banded stage eager: every output equal (the graphs no longer
+    leave the tile-band mode out); one capture, a replay per iteration."""
+    from gflow_tpu_torch.opt import graphs
+    from test_torch_stage_graph import FakeGraph
+
+    params, state, targets = (jax.tree.map(np.asarray, x._asdict()) for x in inputs)
+    kw, _ = stage_cfg(camera_only)
+    cfg = StageConfig(render=RenderConfig(max_per_tile=64, band_devices=("cpu",) * 4), **kw)
+    dyn = StageDynamics(weights=LossWeights(rgb=1.0, depth=0.1), **DYN)
+
+    def stage(cache=None):
+        return train_stage(
+            convert.params_from_numpy(params, "cpu"), convert.frame_state_from_numpy(state, "cpu"),
+            convert.targets_from_numpy(targets, "cpu"), [60.0, 60.0, W / 2, H / 2],
+            torch.Generator().manual_seed(0), cfg, dyn, device="cpu", graphs=cache)
+
+    eager = stage()
+    monkeypatch.setattr(graphs, "graphed", lambda dev: True)
+    cache = graphs.GraphCache(capture=FakeGraph)
+    FakeGraph.captures = 0
+    graphs.REPLAYS.clear()
+    graphed = stage(cache)
+    assert FakeGraph.captures == 1 and graphs.REPLAYS == {"step": ITERS}
+    (entry,) = cache.entries.values()
+    assert entry.devices == cfg.render.band_devices
+    for a, b in zip((*eager[0], *eager[1]), (*graphed[0], *graphed[1])):
+        assert torch.equal(a, b)
+    assert torch.equal(eager[2]["loss_trace"], graphed[2]["loss_trace"])

@@ -106,7 +106,7 @@ class FakeGraph:
 
     captures = 0
 
-    def __init__(self, fn, buffers, dev):
+    def __init__(self, fn, buffers, dev, devices=(), pool=None):
         FakeGraph.captures += 1
         fn(buffers.scratch())
         self.fn, self.buffers, self.outputs = fn, buffers, None
@@ -116,7 +116,7 @@ class FakeGraph:
         if self.outputs is None:
             self.outputs = res
         else:
-            ttrain._copy_into(self.outputs, res)
+            stage_graphs.copy_into(self.outputs, res)
 
 
 def key(cfg=ttrain.StageConfig(W=32, H=16, iterations=2), capacity=64,
@@ -227,7 +227,7 @@ def test_graph_runner_stage_equals_eager(monkeypatch, one_thread, path):
                                   device="cpu", graphs=cache)
 
     eager = [stage(seed) for seed in (2, 3)]
-    monkeypatch.setattr(stage_graphs, "graphed", lambda dev, cfg: True)
+    monkeypatch.setattr(stage_graphs, "graphed", lambda dev: True)
     cache = stage_graphs.GraphCache(capture=FakeGraph)
     FakeGraph.captures = 0
     stage_graphs.REPLAYS.clear()

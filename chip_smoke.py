@@ -45,8 +45,8 @@
    fitted trainer makes as a CUDA graph (diagnostic views, render_views,
    the trajectory image, project_points, gather_project, render2img's
    quantization) against the same call eager: 0 apart, the same launches;
-   runs fit_video again eager, eager and graphed (s/frame and the
-   diagnostic-render and trajectory-eval medians in turns); prints the
+   runs fit_video again eager (s/frame and the diagnostic-render and
+   trajectory-eval medians, graphed and eager); prints the
    trainer's RenderConfig, K escalations, host libraries, native hull and
    its telemetry beside the card's name and power limit;
 6. scores that fit with the port's benchmark (eval.benchmark.main: the
@@ -88,15 +88,33 @@
    fit_video(shard_devices=count) end to end, graphed and eager;
 9. times one frame at the canonical budget (150 camera + 300 full
    iterations, occ densify at 0 and error densify every 100 x2) after one
-   warm-up frame, as CUDA graphs and eager in turns; profiles a
-   20-iteration full stage, graphed and eager (device kernels and graph
+   warm-up frame, as CUDA graphs and eager, one frame each; profiles a
+   10-iteration full stage, graphed and eager (device kernels and graph
    launches per iteration, idle share; Chrome traces written to
    logs/chip_smoke/profile/{graphed,eager}/trace.json) and, alone, the
    binning layer (bin_gaussians) on each stage's first-iteration input;
 10. prints the kernels JSON line (with each kernel's launches in the main
    path, in fit_video, in the eval, in the viewer, in prep and in the
-   multi-GPU phase's banded stages), then as its last line
+   multi-GPU phase's banded stages; small_eig's, the prep path's own
+   kernel, with its launches in prep), then as its last line
    {"ok": true, "device": {...}}.
+
+The prep phase (between 7 and 8) prepares a second 4-frame sequence's
+priors as a user does: prep_flow (GMFlow at the released width),
+prep_moveseg (the LMedS) and prep_depth (MASt3R ViT-L at 512x288, 10
+pairs, the 700-step global alignment), each compiled path as CUDA graphs,
+the counts reset just before and read just after (no K1-K4; small_eig 4
+times a frame); holds each model, the occlusion and the error map against
+the CPU; small_eig against its plain version (torch.linalg.eigh) on
+separated spectra (residual and eigenvector bounds) and through the
+LMedS; every compiled path (global_align, one GMFlow and one MASt3R pair,
+the LMedS, the B-frame step) graphed against eager, 0 apart with equal
+launches, all but global_align recorded in empty caches under
+sync_check("error"); its graphs' nodes, capture and instantiate seconds
+and pool bytes; then the three stages in turns, graphed and eager
+(stage walls, s per pair, LMedS ms and s per frame, ms per Adam step, the
+B-frame step's ms at the fit's width: 2 frames of 854x480, capacity
+51,200).
 
 Any failure raises and exits nonzero. Without CUDA it exits 1 and prints
 no result.
@@ -104,6 +122,7 @@ no result.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import os
@@ -128,6 +147,8 @@ PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 W, H = 854, 480
 N_POINTS, CAPACITY = 50_000, 51_200
 SMI = "not read"  # nvidia-smi's name and power limit line, set by main()
+# the fit's kernels (K1-K4); small_eig runs on the prep path only
+FIT_KERNELS = ("composite_fwd", "composite_fwd_cov", "composite_bwd", "bin_tail")
 # fp32 operations per (pixel, live slot) that the function needs, counted
 # from csrc/composite.cu: alpha 17 (dx dy 2, power 9, min+exp+mul+clamp 4,
 # masks 2); K1 adds w 1 + feat 2F + T 2, K2 adds mul+max 2. K3 evaluates
@@ -242,6 +263,41 @@ def cutoff_bound(rec, t, p, rel=1e-4):
     return 2 * fmax * (at_step * alpha).sum(1)
 
 
+def unexplained(rec, got, want, t, p, n=4):
+    """What a failed hold_composite reports of its first n unexplained
+    pixels: tile and pixel, the kernel's and the plain version's values
+    and their distance from the same function in float64, the live slots
+    and, of those with blend weight T alpha > 1e-3, the largest sum of
+    |power|'s terms (|a dx^2| / 2 + |c dy^2| / 2 + |b dx dy|: float32
+    rounds power to about 1e-7 of it)."""
+    from gflow_tpu_torch.ops import composite
+
+    attrs, counts = rec["attrs"], rec["counts"]
+    res = composite.composite_packed(attrs.double(), counts, rec["bg"].double(), rec["n_tx"],
+                                     rec["with_cov"], rec.get("row0", 0))
+    ref = res[0] if rec["with_cov"] else res
+    px, py = composite.tile_pixels(attrs.shape[0], rec["n_tx"], attrs.device, rec.get("row0", 0))
+    rows = []
+    for ti, pi in zip(t[:n].tolist(), p[:n].tolist()):
+        a = attrs[ti].double()
+        dx, dy = float(px[ti, pi]) - a[:, 0], float(py[ti, pi]) - a[:, 1]
+        terms = (0.5 * a[:, 2] * dx * dx).abs() + (0.5 * a[:, 4] * dy * dy).abs() + (
+            a[:, 3] * dx * dy).abs()
+        power = -0.5 * (a[:, 2] * dx * dx + a[:, 4] * dy * dy) - a[:, 3] * dx * dy
+        alpha = torch.clamp_max(a[:, 5] * torch.exp(power.clamp_max(0.0)), 0.99)
+        live = torch.arange(a.shape[0], device=a.device) < counts[ti]
+        alpha = torch.where(live, alpha, 0.0)
+        weight = alpha * torch.cumprod(torch.cat([alpha.new_ones(1), 1 - alpha[:-1]]), 0)
+        heavy = weight > 1e-3
+        rows.append({"tile": ti, "pixel": pi, "kernel": got[ti, pi].tolist(),
+                     "plain": want[ti, pi].tolist(),
+                     "kernel_vs_f64": float((got[ti, pi].double() - ref[ti, pi]).abs().max()),
+                     "plain_vs_f64": float((want[ti, pi].double() - ref[ti, pi]).abs().max()),
+                     "live_slots": int(counts[ti]),
+                     "max_terms_weighted": float(terms[heavy].max()) if heavy.any() else 0.0})
+    return rows
+
+
 def hold_composite(got, want, rec, atol, rtol, max_share=1e-4):
     """Hold the (T, P, F) output of one packed compositor call on rec
     against its plain version: every element within atol + rtol |want|,
@@ -255,8 +311,10 @@ def hold_composite(got, want, rec, atol, rtol, max_share=1e-4):
         over = (diff - tol)[t, p].amax(-1)
         bound = cutoff_bound(rec, t, p)
         msg = f"{t.numel()} pixels past atol {atol} rtol {rtol}, by up to {float(over.max()):.3g}"
-        assert bool((over <= bound).all()), (
-            f"{msg}; not explained by alpha's steps at {int((over > bound).sum())} of them")
+        odd = ~(over <= bound)  # a NaN is not explained
+        assert not bool(odd.any()), (
+            f"{msg}; not explained by alpha's steps at {int(odd.sum())} of them: "
+            f"{json.dumps(unexplained(rec, got, want, t[odd], p[odd]))}")
         assert t.numel() <= max_share * diff.shape[0] * diff.shape[1], f"{msg}: too many"
     return float(diff.max()), int(t.numel())
 
@@ -463,8 +521,9 @@ def log_row(name, K, where, r):
 
 
 def build_report():
-    """ptxas's registers and spills per compositor kernel, and the resident
-    blocks per SM of K1, K2 and K3 at F = 4 (cudaOccupancy...)."""
+    """ptxas's registers and spills per compositor kernel and per small_eig
+    instantiation, and the resident blocks per SM of K1, K2 and K3 at F =
+    4 (cudaOccupancy...)."""
     import ctypes
     import re
 
@@ -483,6 +542,12 @@ def build_report():
             kernels.setdefault(name, {})["regs"] = int(m.group(1))
     report = json.dumps(kernels) if kernels else "no build log (built by an earlier process)"
     log(f"# ptxas composite.cu: {report}")
+    eig = [re.search(r"Used (\d+) registers", line).group(1) + " registers"
+           for line in _build.BUILD_LOGS.get("small_eig.cu", "").splitlines()
+           if "Used" in line and "registers" in line]
+    spills = [m.group(0) for m in re.finditer(r"\d+ bytes spill stores",
+                                              _build.BUILD_LOGS.get("small_eig.cu", ""))]
+    log(f"# ptxas small_eig.cu (n = 9 down to 1, as listed): {eig or 'no build log'}; {spills}")
     fn = _build.library("composite.cu").gflow_composite_occupancy
     fn.argtypes, fn.restype = (ctypes.c_int, ctypes.c_int, ctypes.c_void_p), ctypes.c_int
     occ = {}
@@ -936,7 +1001,7 @@ def _main_path(scene):
     launches, replayed = dict(_build.LAUNCHES), dict(_build.REPLAYED)
     log(f"# main path launches: {launches}, of them in CUDA graph replays {replayed}; graph "
         f"replays {dict(stage_graphs.REPLAYS)}")
-    for name in _build.KERNELS:
+    for name in FIT_KERNELS:
         assert launches.get(name, 0) > 0, f"kernel {name} never launched on the main path"
         assert replayed.get(name, 0) > 0, f"kernel {name} never launched in a graph replay"
 
@@ -1039,10 +1104,10 @@ def graph_holds(scene, graphed_check):
 
 def time_frame(scene):
     """One frame at the canonical budget after one warm-up frame (which
-    records the stages' CUDA graphs), then timed in turns as graphs (the
-    default) and eager (disable_graphs): graphed, eager, eager, graphed.
-    Each frame starts from the one before. Returns {"graphed": [..],
-    "eager": [..]} of per-frame results and their means."""
+    records the stages' CUDA graphs), then timed as graphs (the default)
+    and eager (disable_graphs), one frame each (the script's time holds
+    no more). Each frame starts from the one before. Returns {"graphed": [..], "eager": [..]} of per-frame
+    results and their means."""
     from gflow_tpu_torch.opt import graphs as stage_graphs
     from gflow_tpu_torch.opt.state import init_frame_state
     from gflow_tpu_torch.opt.train import StageConfig, train_stage
@@ -1060,7 +1125,7 @@ def time_frame(scene):
     s = init_frame_state(CAPACITY)._replace(
         n_alive=torch.tensor(n0, dtype=torch.int32, device="cuda"))
     frames = {"graphed": [], "eager": []}
-    for mode in ("warmup", "graphed", "eager", "eager", "graphed"):
+    for mode in ("warmup", "graphed", "eager"):
         _build.LAUNCHES.clear()
         with stage_graphs.disable_graphs() if mode == "eager" else contextlib.nullcontext():
             torch.cuda.synchronize()
@@ -1082,7 +1147,6 @@ def time_frame(scene):
         if mode != "warmup":
             frames[mode].append(result)
     for mode, runs in list(frames.items()):
-        assert runs[0]["cam_launches"] == runs[1]["cam_launches"], runs
         frames[f"{mode}_mean"] = {k: float(np.mean([r[k] for r in runs])) for k in
                                   ("cam_ms_per_iter", "full_ms_per_iter", "s_per_frame")}
     assert frames["graphed"][0]["cam_launches"] == frames["eager"][0]["cam_launches"], frames
@@ -1173,11 +1237,12 @@ def trainer_graph_holds(trainer, traj_args):
 
 
 def fit_video_turns(first):
-    """fit_video at the cut depth in TURNS: `first`, the fit_video phase's
-    graphed run (trainer, wall seconds), is the first turn; then eager,
-    eager and graphed, each on a sequence of its own. Returns per mode each
-    run's s/frame, wall seconds and phase medians (the diagnostic renders,
-    the trajectory eval, the stages)."""
+    """fit_video at the cut depth graphed and eager: `first`, the fit_video
+    phase's graphed run (trainer, wall seconds), then one eager run on a
+    sequence of its own (the script's time holds no more). Returns per
+    mode each run's
+    s/frame, wall seconds and phase medians (the diagnostic renders, the
+    trajectory eval, the stages)."""
     from gflow_tpu_torch.opt.graphs import disable_graphs
 
     def summary(trainer, wall):
@@ -1188,11 +1253,11 @@ def fit_video_turns(first):
                                            "camera_stage", "full_stage", "device/stage")}}
 
     out = {"graphed": [summary(*first)], "eager": []}
-    for i, mode in enumerate(TURNS[1:]):
+    for i, mode in enumerate(("eager",)):
         with disable_graphs() if mode == "eager" else contextlib.nullcontext():
             trainer, _, wall = run_fit_video(os.path.join(FIT_DIR, "turns", str(i)), "cuda")
         out[mode].append(summary(trainer, wall))
-    log(f"# fit_video at the cut depth in turns {TURNS} ({SMI}): {json.dumps(out)}")
+    log(f"# fit_video at the cut depth, graphed then eager ({SMI}): {json.dumps(out)}")
     return out
 
 
@@ -1393,7 +1458,7 @@ def fit_video_phase(scene):
     launches = dict(_build.LAUNCHES)
     log(f"# fit_video launches: {launches}; packed compositor calls by shape: "
         f"{json.dumps(dict(sorted(shapes.items())))}")
-    for name in _build.KERNELS:
+    for name in FIT_KERNELS:
         assert launches.get(name, 0) > 0, f"kernel {name} never launched in fit_video"
     rc = trainer.render_config
     log(f"# fit_video RenderConfig: M={rc.max_tiles_per_gaussian} K={rc.max_per_tile} "
@@ -1869,6 +1934,7 @@ def prep_flow_phase(seq):
     from gflow_tpu_torch.core.io import imread, load_image, read_flow
     from gflow_tpu_torch.models.random_weights import seeded_state_dict
     from gflow_tpu_torch.models.unimatch import GMFlow, GMFlowConfig, convert
+    from gflow_tpu_torch.opt import graphs as stage_graphs
     from gflow_tpu_torch.pipeline import prep_flow
     from gflow_tpu_torch.utils.cli import run_cli
 
@@ -1877,7 +1943,8 @@ def prep_flow_phase(seq):
     torch.save({"model": sd}, pth)
     pair_s = []
     t0 = time.perf_counter()
-    with timed_calls(GMFlow, "forward", pair_s):
+    # a forward replays a CUDA graph: time the call that replays it
+    with timed_calls(stage_graphs, "module_call", pair_s):
         run_cli(prep_flow.main, ["--img-dir", seq, "--checkpoint", pth])
     wall = time.perf_counter() - t0
     out = seq + "_flow_unimatch"
@@ -1907,8 +1974,9 @@ def prep_flow_phase(seq):
     torch.testing.assert_close(got, want, atol=5e-4, rtol=1e-3)
     mean_flow = [float(np.abs(f).mean()) for f in flows.values()]
     log(f"# prep_flow ({SMI}): GMFlow {cfg} at 864x480 (854x480 padded), 3 pairs x 2 "
-        f"directions: {np.mean(pair_s[1:]):.4f} s per directed pair (first call "
-        f"{pair_s[0]:.4f} s), stage wall {wall:.2f} s; mean |flow| {mean_flow}; occluded "
+        f"directions, as CUDA graphs: {np.mean(pair_s[1:]):.4f} s per directed pair (first "
+        f"call, which records, {pair_s[0]:.4f} s), stage wall {wall:.2f} s; mean |flow| "
+        f"{mean_flow}; occluded "
         f"share {occ_share}; occlusion card vs CPU on the same flows: {flips} pixels differ "
         f"(allowed only where |diff - bound| < {OCC_MARGIN}); one directed pair at {w}x{h} "
         f"card vs CPU max abs err {err:.3e} (atol 5e-4, rtol 1e-3; |flow| max "
@@ -1978,21 +2046,24 @@ def prep_moveseg_phase(seq, flows):
     assert len(frame_s) == 3, frame_s
 
     flow, block = scene_flow(H, W)
-    err, flipped, got = hold_error_map(flow)
+    with uncounted():  # card against CPU: comparison launches
+        err, flipped, got = hold_error_map(flow)
+        prep_err, prep_flipped, _ = hold_error_map(flows[0])
     assert err <= MAP_ATOL and flipped <= MASK_FLIPS, (err, flipped)
     assert (got[block] > 0.01).all() and (got > 0.01).mean() < 0.1
-    prep_err, prep_flipped, _ = hold_error_map(flows[0])
 
     par = np.zeros((H, W, 2), np.float32)  # the test's flow, its regions scaled to 854x480
     par[..., 0] = 3.0 * np.linspace(0.8, 1.2, H)[:, None]
     ys, xs = slice(H * 30 // 96, H * 60 // 96), slice(W * 40 // 128, W * 80 // 128)
     par[ys, xs] = (-4.0, 2.5)
-    e = prep_moveseg.epipolar_error_map(par)
+    with uncounted():
+        e = prep_moveseg.epipolar_error_map(par)
     inside = float(e[H * 35 // 96: H * 55 // 96, W * 45 // 128: W * 75 // 128].mean())
     outside = float(np.r_[e[:H * 20 // 96].ravel(), e[H * 70 // 96:].ravel()].mean())
     assert inside > 10 * outside, (inside, outside)
-    log(f"# prep_moveseg ({SMI}): {np.mean(frame_s):.4f} s per frame (LMedS on the card, "
-        f"first {frame_s[0]:.4f} s), stage wall {wall:.2f} s; moving share after opening "
+    log(f"# prep_moveseg ({SMI}): {np.mean(frame_s):.4f} s per frame (LMedS on the card as "
+        f"a CUDA graph, small_eig's eigenvectors; first, which records, {frame_s[0]:.4f} s), "
+        f"stage wall {wall:.2f} s; moving share after opening "
         f"{moving}; error map card vs CPU with the same draws on a rigid scene's 854x480 "
         f"flow: max abs err {err:.3e} (tol {MAP_ATOL}), mask flips {flipped:.2e} (tol {MASK_FLIPS}); "
         f"on prep_flow's first flow (reported, not held): max abs err {prep_err:.3e}, mask "
@@ -2013,8 +2084,9 @@ def prep_depth_phase(seq):
     import shutil
 
     from gflow_tpu_torch.core.io import _resize_hw, imread, read_camera
-    from gflow_tpu_torch.models.mast3r import Mast3rConfig, Mast3rModel, convert
+    from gflow_tpu_torch.models.mast3r import Mast3rConfig, Mast3rModel, alignment, convert
     from gflow_tpu_torch.models.random_weights import seeded_state_dict
+    from gflow_tpu_torch.opt import graphs as stage_graphs
     from gflow_tpu_torch.pipeline import prep_depth
     from gflow_tpu_torch.utils.cli import run_cli
 
@@ -2026,17 +2098,23 @@ def prep_depth_phase(seq):
     model = meta_model(Mast3rModel, cfg, sd, "cuda")
     weights_s = time.perf_counter() - t0
     n_params = sum(v.numel() for v in sd.values())
-    pair_s, align = [], {}
+    pair_s, align, align_args = [], {}, {}
 
     def aligned(*args, **kw):
+        align_args["global_align"] = (args, kw)
         res = orig_align(*args, **kw, collect_timings=True)
         align.update(res["timings"])
         return res
 
-    orig_align = prep_depth.global_align
+    def refine(*args):
+        align_args.setdefault("_refine", args)  # the first stage's
+        return orig_refine(*args)
+
+    orig_align, orig_refine = prep_depth.global_align, alignment._refine
     t0 = time.perf_counter()
-    with timed_calls(Mast3rModel, "forward", pair_s), \
-            mock.patch.object(prep_depth, "global_align", aligned):
+    with timed_calls(stage_graphs, "module_call", pair_s), \
+            mock.patch.object(prep_depth, "global_align", aligned), \
+            mock.patch.object(alignment, "_refine", refine):
         prep_depth.main(seq, inference_size=MAST3R_SIZE, model=model)
     wall = time.perf_counter() - t0
     assert len(pair_s) == 10, pair_s
@@ -2061,7 +2139,7 @@ def prep_depth_phase(seq):
     a, b = (torch.from_numpy(load_image(os.path.join(seq, f"{n}.jpg"), resize=MAST3R_SIZE))[None]
             for n in names[:2])
     assert a.shape[1:3] == inf_hw, a.shape
-    with torch.inference_mode():
+    with torch.inference_mode(), uncounted():
         got = model(a.cuda(), b.cuda())
         cpu_model = meta_model(Mast3rModel, cfg, sd, "cpu")
         t1 = time.perf_counter()
@@ -2093,22 +2171,347 @@ def prep_depth_phase(seq):
     log(f"# prep_depth ({SMI}): MASt3R catmlp+dpt ViT-L 1024x24 / ViT-B 768x12, "
         f"{n_params / 1e6:.1f}M parameters (seeded, x{MAST3R_SCALE}; built in {weights_s:.2f} s), "
         f"{inf_hw[1]}x{inf_hw[0]} ({-(-inf_hw[0] // 16) * -(-inf_hw[1] // 16)} tokens a view): "
-        f"{np.mean(pair_s[1:]):.4f} s per directed pair (first "
-        f"{pair_s[0]:.4f} s), 10 pairs; global_align (700 Adam steps on the card) "
+        f"{np.mean(pair_s[1:]):.4f} s per directed pair as CUDA graphs (first, which records, "
+        f"{pair_s[0]:.4f} s), 10 pairs; global_align (700 Adam steps, CUDA graphs of "
+        f"{alignment.CHUNK}) "
         f"{json.dumps(align)}; stage wall {wall:.2f} s; focal {focal:.2f}; one pair card vs "
         f"CPU max abs err {json.dumps(errs)} (atol 1e-3, rtol 1e-3; CPU {cpu_s:.2f} s); "
         f"--checkpoint (small linear .pth, 3 frames) ran")
     return {"s_per_pair": float(np.mean(pair_s[1:])), "first_pair_s": pair_s[0],
-            "align": align, "wall_s": wall, "hold_err": errs, "model": model}
+            "align": align, "wall_s": wall, "hold_err": errs, "model": model,
+            "align_args": align_args}
+
+
+@contextmanager
+def uncounted():
+    """Keep the kernel launches of the block out of LAUNCHES: a hold of a
+    kernel against its plain version, whose launches are no part of the
+    path's count (they go to a recording's log, as a capture's do)."""
+    from gflow_tpu_torch.ops import _build
+
+    with _build.recording():
+        yield
+
+
+PREP_CACHES = (("gflow_tpu_torch.pipeline.prep_flow", "FLOW_GRAPHS"),
+               ("gflow_tpu_torch.pipeline.prep_depth", "DEPTH_GRAPHS"),
+               ("gflow_tpu_torch.ops.epipolar", "LMEDS_GRAPHS"),
+               ("gflow_tpu_torch.models.mast3r.alignment", "REFINE_GRAPHS"))
+
+
+@contextmanager
+def fresh_prep_caches():
+    """Empty graph caches of prep's compiled paths in place of the
+    process's while the block runs (a hold's capture then happens inside
+    the hold); yields {attr: cache}."""
+    import importlib
+
+    from gflow_tpu_torch.opt import graphs as stage_graphs
+
+    fresh = {}
+    with contextlib.ExitStack() as stack:
+        for module, attr in PREP_CACHES:
+            mod = importlib.import_module(module)
+            old = getattr(mod, attr)
+            fresh[attr] = (stage_graphs.ForwardCache(old.name, old.maxsize)
+                           if isinstance(old, stage_graphs.ForwardCache)
+                           else stage_graphs.GraphCache(old.maxsize))
+            stack.enter_context(mock.patch.object(mod, attr, fresh[attr]))
+        yield fresh
+
+
+def pool_bytes(pool) -> int:
+    """Bytes the allocator holds in graph memory pool `pool` (its
+    segments in torch.cuda.memory_snapshot())."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def prep_graph_report(caches):
+    """Per cache of prep's compiled paths: its graphs (name, nodes by
+    cuGraphGetNodes, capture and instantiate seconds) and the bytes of
+    its graph pools."""
+    import ctypes
+
+    from gflow_tpu_torch.opt import graphs as stage_graphs
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    out = {}
+    for attr, cache in caches.items():
+        rows, pools = [], set()
+        for entry in cache.entries.values():
+            for name, g in entry.graphs.items():
+                n = ctypes.c_size_t(0)
+                rc = cuda.cuGraphGetNodes(ctypes.c_void_p(g.graph.raw_cuda_graph()), None,
+                                          ctypes.byref(n))
+                assert rc == 0, f"cuGraphGetNodes failed: CUresult {rc}"
+                rows.append({"graph": name, "nodes": n.value, "capture_s": g.capture_s,
+                             "instantiate_s": g.instantiate_s})
+                pools.add(tuple(g.graph.pool()))
+        if isinstance(cache, stage_graphs.ForwardCache):
+            pools = {tuple(k.pool()) for k in cache.pools.values()}
+        out[attr] = {"graphs": rows, "pool_bytes": sum(pool_bytes(p) for p in pools)}
+    return out
+
+
+def rigid_lmeds_inputs(H_=H, W_=W):
+    """The LMedS's inputs on the rigid scene's flow (scene_flow): x1, x2 on
+    the card, the draws on the host, and the flow."""
+    from gflow_tpu_torch.ops.epipolar import lmeds_draws
+    from gflow_tpu_torch.pipeline.prep_moveseg import uv_grid
+
+    flow, _ = scene_flow(H_, W_)
+    x1 = torch.from_numpy(uv_grid(H_, W_).reshape(-1, 2)).cuda()
+    x2 = x1 + torch.from_numpy(np.stack([2 * flow[..., 0] / (W_ - 1),
+                                         2 * flow[..., 1] / (H_ - 1)], -1).reshape(-1, 2)).cuda()
+    return x1, x2, lmeds_draws(H_ * W_), flow
+
+
+def separated_symmetric(n, batch, seed=0):
+    """Seeded symmetric (batch, n, n) float32 matrices on the card whose
+    smallest eigenvalue lies 0.1-0.6 below the next."""
+    rng = np.random.default_rng(seed)
+    Q = np.linalg.qr(rng.normal(size=(batch, n, n)))[0]
+    lam = np.sort(rng.uniform(-1, 1, (batch, n)), axis=1)
+    lam[:, 0] = lam[:, 1] - 0.1 - rng.uniform(0, 0.5, batch)
+    return torch.from_numpy(((Q * lam[:, None, :]) @ Q.transpose(0, 2, 1)).astype(np.float32)
+                            ).cuda()
+
+
+SMALL_EIG_RES, SMALL_EIG_DOT = 1e-5, 1e-5  # residual / |A|, 1 - |v . v_plain|
+
+
+def eig_ops(n: int) -> float:
+    """fp32 operations the function needs per n x n matrix: the
+    Householder tridiagonal reduction of a symmetric eigensolve, 4 n^3 / 3
+    (the tridiagonal eigenvalues and one eigenvector take O(n^2) more).
+    Jacobi's sweeps are the design's cost, not the function's."""
+    return 4 * n ** 3 / 3
+
+
+def small_eig_rows(main_M):
+    """small_eig against its plain version (torch.linalg.eigh's
+    eigenvector) on the card: seeded separated spectra, 512 matrices of 9
+    x 9 and 3 x 3 (residual |A v - l v| / |A| <= SMALL_EIG_RES, |v .
+    v_plain| >= 1 - SMALL_EIG_DOT), and the LMedS's own 512 9 x 9 A^T A
+    (`main_M`, near-singular by construction: residual held, the dot
+    reported); kernel (n launches in a CUDA graph), plain version and
+    torch.linalg.eigh timed; the bound from the function's bytes and
+    operations (eig_ops)."""
+    from gflow_tpu_torch.ops import epipolar
+
+    rows = {}
+    with uncounted():
+        for where, A in (("synthetic 9x9", separated_symmetric(9, 512)),
+                         ("synthetic 3x3", separated_symmetric(3, 512, seed=1)),
+                         ("main 9x9", main_M)):
+            n = A.shape[-1]
+            v = epipolar.small_eig(A)
+            want = epipolar.smallest_eigvec_plain(A)
+            lam = torch.einsum("bi,bij,bj->b", v, A, v)
+            res = float((torch.linalg.vector_norm(A @ v[..., None] - lam[:, None, None]
+                                                  * v[..., None], dim=(1, 2))
+                         / torch.linalg.matrix_norm(A)).max())
+            dot = float((v * want).sum(-1).abs().min())
+            assert res <= SMALL_EIG_RES, (where, res)
+            if where.startswith("synthetic"):
+                assert dot >= 1 - SMALL_EIG_DOT, (where, dot)
+            t_b, by = bound(A.shape[0] * eig_ops(n), A.numel() * 4 + v.numel() * 4)
+            sign = torch.where((v * want).sum(-1, keepdim=True) < 0, -1.0, 1.0)
+            rows[where] = {
+                "max_abs_err": float((v - sign * want).abs().max()),
+                "residual": res, "min_abs_dot": dot,
+                "ms": kernel_ms(lambda: epipolar.small_eig(A)),
+                "plain_ms": cuda_ms(lambda: epipolar.smallest_eigvec_plain(A)),
+                "library_ms": cuda_ms(lambda: torch.linalg.eigh(A)),
+                "bound_ms": t_b, "bound_by": by}
+            log(f"# small_eig {where} (512 matrices; sign-aligned max abs err against eigh's "
+                f"eigenvector): {json.dumps(rows[where])}")
+    return rows
+
+
+def lmeds_plain_hold():
+    """The LMedS's error map on the rigid scene's 854x480 flow with
+    small_eig (graphed) against the plain torch.linalg path on the card
+    (eager: eigh reads back), the same draws: normalized maps within
+    MAP_ATOL, at most MASK_FLIPS of the mask flipped."""
+    from gflow_tpu_torch.ops import epipolar
+    from gflow_tpu_torch.opt.graphs import disable_graphs
+    from gflow_tpu_torch.pipeline.prep_moveseg import epipolar_error_map
+
+    _, _, draws, flow = rigid_lmeds_inputs()
+    with uncounted():
+        got = epipolar_error_map(flow, device="cuda", draws=draws)
+        with disable_graphs(), mock.patch.object(epipolar, "smallest_eigvec",
+                                                 epipolar.smallest_eigvec_plain):
+            want = epipolar_error_map(flow, device="cuda", draws=draws)
+    err = float(np.abs(got - want).max())
+    flips = float(((got > 0.01) != (want > 0.01)).mean())
+    assert err <= MAP_ATOL and flips <= MASK_FLIPS, (err, flips)
+    return {"map_err": err, "mask_flips": flips}
+
+
+def prep_frames(seq, size=None, pad=1):
+    """Frames 0 and 1 of `seq` on the card as (1, H, W, 3), resized to
+    `size` (short side) and zero-padded to a multiple of `pad` as
+    prep_flow pads them."""
+    from gflow_tpu_torch.core.io import load_image
+
+    out = []
+    for t in (0, 1):
+        img = load_image(os.path.join(seq, f"{t:05d}.jpg"), resize=size)
+        img = np.pad(img, ((0, -img.shape[0] % pad), (0, -img.shape[1] % pad), (0, 0)))
+        out.append(torch.from_numpy(img).cuda()[None])
+    return out
+
+
+def prep_graph_holds(seq, flow_sd, mast3r, align_args):
+    """Each of prep's compiled paths as CUDA graphs against the same call
+    eager (graph_hold: deterministic, 0 apart, equal launches): the
+    700-step global_align of prep_depth's run (poses, depths, final loss);
+    recorded anew under sync_check("error") in empty caches: the
+    refinement's steps (45 steps of its first stage: two chunk graphs and
+    a tail), one GMFlow directed pair at 864x480, one MASt3R pair at
+    512x288, the LMedS on the rigid scene's flow, and the B-frame step
+    (dryrun_step's inputs over a (2 data x 2 tile) mesh on card_list(4))
+    called twice. Reports their graphs, nodes, capture and instantiate
+    seconds and pool bytes."""
+    from gflow_tpu_torch.models.mast3r import alignment
+    from gflow_tpu_torch.models.unimatch import GMFlow, GMFlowConfig
+    from gflow_tpu_torch.ops import epipolar
+    from gflow_tpu_torch.parallel.mesh import make_mesh
+    from gflow_tpu_torch.parallel.multichip import sharded_train_step, step_inputs
+    from gflow_tpu_torch.pipeline import prep_depth, prep_flow
+
+    holds = {}
+    args, kw = align_args["global_align"]
+    holds["global_align 700 steps"] = graph_hold(lambda: alignment.global_align(*args, **kw))
+    gmflow = meta_model(GMFlow, GMFlowConfig(), flow_sd, "cuda")
+    fa, fb = prep_frames(seq, pad=32)
+    ma, mb = prep_frames(seq, size=MAST3R_SIZE)
+    x1, x2, draws, _ = rigid_lmeds_inputs()
+    mesh = make_mesh(4, data_parallel=2, device=list(card_list(4)))
+    cfg, dyn, step_args = step_inputs(mesh)
+    step = sharded_train_step(mesh, cfg, dyn)[0]
+
+    def two_steps():
+        p, o, *rest = step_args
+        outs = []
+        for _ in range(2):
+            p, o, loss, rgb = step(p, o, *rest)
+            outs.append((p, o.m, o.v, loss, rgb))
+        return outs
+
+    refine = align_args["_refine"]
+    with fresh_prep_caches() as caches:
+        holds["_refine 45 steps"] = graph_hold(
+            lambda: alignment._refine(*refine[:9], 45), checked=True)
+        with torch.inference_mode():
+            holds["gmflow pair 864x480"] = graph_hold(lambda: prep_flow.batch_runner(
+                gmflow, 0, fa.device, prep_flow.FLOW_GRAPHS)[0](fa, fb), checked=True)
+            holds["mast3r pair 512x288"] = graph_hold(lambda: prep_flow.batch_runner(
+                mast3r, 0, ma.device, prep_depth.DEPTH_GRAPHS)[0](ma, mb), checked=True)
+        holds["lmeds 854x480"] = graph_hold(
+            lambda: epipolar.find_fundamental_lmeds(x1, x2, draws=draws), checked=True)
+        holds["b-frame step x2"] = graph_hold(two_steps, checked=True)
+        torch.cuda.synchronize()
+        report = prep_graph_report(caches)
+    assert holds["lmeds 854x480"]["launches"] == {"small_eig": 4}, holds["lmeds 854x480"]
+    log(f"# prep's compiled paths graphed vs eager ({SMI}; deterministic, 0 apart, equal "
+        f"launches; all but global_align recorded under sync_check('error')): "
+        f"{json.dumps(holds)}")
+    log(f"# prep graphs recorded ({SMI}): {json.dumps(report)}")
+    return {"holds": holds, "graphs": report}
+
+
+def prep_turns(seq, flow_sd, mast3r):
+    """prep_flow, prep_moveseg and prep_depth (the prep phase's models, a
+    copy of its frames each run) in TURNS, graphed and eager, their graphs
+    recorded before: each stage's wall seconds, GMFlow's and
+    MASt3R's seconds per pair, the LMedS's ms and moveseg's seconds per
+    frame, global_align's ms per Adam step and seconds per stage; and the
+    B-frame step's ms (median of 10, synchronized) at the fit's width:
+    bench.py's frame size, capacity and M / K (854x480, 51,200, 8 / 96) and
+    the scene's focal length (500 px), 2 frames over a (2 data x 2 tile)
+    mesh on card_list(4)."""
+    import shutil
+
+    from gflow_tpu_torch.models.unimatch import GMFlow, GMFlowConfig
+    from gflow_tpu_torch.opt import graphs as stage_graphs
+    from gflow_tpu_torch.parallel.mesh import make_mesh
+    from gflow_tpu_torch.parallel.multichip import sharded_train_step, step_inputs
+    from gflow_tpu_torch.pipeline import prep_depth, prep_flow, prep_moveseg
+
+    gmflow = meta_model(GMFlow, GMFlowConfig(), flow_sd, "cuda")
+    mesh = make_mesh(4, data_parallel=2, device=list(card_list(4)))
+    cfg, dyn, step_args = step_inputs(mesh, W=W, H=H, capacity=CAPACITY, max_per_tile=96,
+                                      max_tiles_per_gaussian=8, focal=500.0)
+    step = sharded_train_step(mesh, cfg, dyn)[0], step_args
+    root = os.path.join(PREP_DIR, "turns")
+    runs = iter(range(1, 100))
+
+    def run(mode):
+        d = copy_frames(seq, os.path.join(root, f"{next(runs)}_{mode}", "seq"), 4)
+        pairs, frames, lmeds, align = [], [], [], {}
+        aligned = prep_depth.global_align
+
+        def timed_align(*a, **kw):
+            res = aligned(*a, **kw, collect_timings=True)
+            align.update(res["timings"])
+            return res
+
+        walls = {}
+        with contextlib.redirect_stdout(io.StringIO()), \
+                timed_calls(stage_graphs, "module_call", pairs), \
+                timed_calls(prep_moveseg, "epipolar_error_map", frames), \
+                timed_calls(prep_moveseg, "find_fundamental_lmeds", lmeds), \
+                mock.patch.object(prep_depth, "global_align", timed_align):
+            for name, call in (("prep_flow", lambda: prep_flow.main(d, model=gmflow)),
+                               ("prep_moveseg", lambda: prep_moveseg.main(d)),
+                               ("prep_depth", lambda: prep_depth.main(
+                                   d, model=mast3r, inference_size=MAST3R_SIZE))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                walls[name] = time.perf_counter() - t0
+        shutil.rmtree(os.path.dirname(d))
+        torch.cuda.synchronize()
+        t_step = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            step[0](*step[1])
+            torch.cuda.synchronize()
+            t_step.append(time.perf_counter() - t0)
+        return {"wall_s": walls, "gmflow_s_per_pair": float(np.mean(pairs[:6])),
+                "mast3r_s_per_pair": float(np.mean(pairs[6:])),
+                "lmeds_ms": 1e3 * float(np.mean(lmeds)),
+                "moveseg_s_per_frame": float(np.mean(frames)),
+                "align_ms_per_step": align["ms_per_step"],
+                "align_stage_s": align["refine_stage_secs"],
+                "b_frame_step_ms": 1e3 * float(np.median(t_step))}
+
+    # record the turns' GMFlow and B-frame step graphs (their model and
+    # shapes are new; the other graphs are the prep phase's own)
+    with torch.inference_mode():
+        prep_flow.batch_runner(gmflow, 0, torch.device("cuda"), prep_flow.FLOW_GRAPHS)[0](
+            *prep_frames(seq, pad=32))
+    loss = step[0](*step[1])[2]
+    assert bool(torch.isfinite(loss)), "the B-frame step at the fit's width: non-finite loss"
+    turns = in_turns(run)
+    log(f"# prep in turns {TURNS} ({SMI}): {json.dumps(turns)}")
+    return turns
 
 
 def prep_phase():
     """The prior preparation on the card, as a user runs it before a fit:
     prep_flow, prep_moveseg (on prep_flow's flows) and prep_depth on a
-    4-frame 854x480 sequence, at the released model widths, with the
-    launch counts reset just before and read just after: the prep path
-    runs none of K1-K4."""
-    from gflow_tpu_torch.ops import _build
+    4-frame 854x480 sequence, at the released model widths, every compiled
+    path as CUDA graphs, with the launch counts reset just before and read
+    just after: the prep path runs none of K1-K4 and small_eig in each
+    LMedS. Then small_eig against its plain version, each compiled path
+    graphed against eager, and the timings in turns."""
+    from gflow_tpu_torch.ops import _build, epipolar
 
     seq = prep_sequence()
     _build.LAUNCHES.clear()
@@ -2119,12 +2522,23 @@ def prep_phase():
     depth = prep_depth_phase(seq)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
-    assert not any(launches.values()), f"the prep path launched {launches}"
-    log(f"# prep ({SMI}): wall {time.perf_counter() - t0:.2f} s (the holds included); "
-        f"K1-K4 launches {launches or 0}")
+    assert not any(v for k, v in launches.items() if k != "small_eig"), launches
+    assert launches.get("small_eig", 0) == 4 * 3, f"the prep path launched {launches}"
+    wall = time.perf_counter() - t0
+    x1, x2, draws, _ = rigid_lmeds_inputs()
+    A = epipolar._design_rows(x1[draws[0].cuda()], x2[draws[0].cuda()])
+    eig = small_eig_rows(A.transpose(-1, -2) @ A)
+    eig["lmeds"] = lmeds_plain_hold()
+    sd, mast3r = flow.pop("sd"), depth.pop("model")
+    graphed = prep_graph_holds(seq, sd, mast3r, depth.pop("align_args"))
+    turns = prep_turns(seq, sd, mast3r)
+    log(f"# prep ({SMI}): wall {wall:.2f} s (the holds included), then "
+        f"{time.perf_counter() - t0 - wall:.2f} s of kernel holds, graph holds and turns; "
+        f"launches {launches}; small_eig through the LMedS against the plain eigh path "
+        f"{json.dumps(eig['lmeds'])}")
     # the models stay for the multi-GPU phase's mesh_devices holds
     return {"launches": launches, "flow": flow, "moveseg": moveseg, "depth": depth, "seq": seq,
-            "models": (flow.pop("sd"), depth.pop("model"))}
+            "models": (sd, mast3r), "small_eig": eig, "graphed": graphed, "turns": turns}
 
 
 # ---------------------------------------------------------------------------
@@ -2277,7 +2691,7 @@ def banded_stages(scene, bands):
             traces_e, alive_e, p_e, out_e = check_run(sb)
         torch.cuda.synchronize()
         launches_e = dict(_build.LAUNCHES)
-    for name in _build.KERNELS:
+    for name in FIT_KERNELS:
         assert launches.get(name, 0) > 0, f"kernel {name} never launched in the banded stages"
     assert replays.get("step") == 30, replays  # 3 stages x 10 iterations
     assert alive_b == alive_u == alive_e, (alive_b, alive_u, alive_e)
@@ -2407,11 +2821,25 @@ def prep_mesh_hold(prep):
         os.path.join(runs[("depth", 0)], f))).max()) for f in sorted(os.listdir(
             runs[("depth", 0)])) if f.endswith(".npy"))
     assert flow_err <= 2e-4 and depth_err <= 2e-3, (flow_err, depth_err)
+    replicas = None
+    if torch.cuda.device_count() > 1:
+        # one graph per replica on its own card, against the replicas eager
+        from gflow_tpu_torch.opt.graphs import ForwardCache
+        from gflow_tpu_torch.parallel.mesh import make_mesh, sharded_batch_apply
+
+        fa, fb = prep_frames(seq, pad=32)
+        run = sharded_batch_apply(gmflow, make_mesh(2, data_parallel=2, device="cuda"),
+                                  ForwardCache("gmflow replicas", 4))
+        with torch.inference_mode():
+            replicas = graph_hold(lambda: run(torch.cat([fa, fb]), torch.cat([fb, fa])))
+        assert replicas["replays"] == {"gmflow replicas": 2}, replicas
     del gmflow, mast3r
     log(f"# prep mesh_devices=2 vs 0 over {[str(d) for d in card_list(2)]} ({SMI}): flows max "
         f"abs diff {flow_err:.3e} (tol 2e-4), depth {depth_err:.3e} (tol 2e-3); seconds "
-        f"{json.dumps(secs)}")
-    return {"flow_err": flow_err, "depth_err": depth_err, "seconds": secs}
+        f"{json.dumps(secs)}; GMFlow's replicas over cuda:0 and cuda:1 graphed vs eager "
+        f"(0 apart): {json.dumps(replicas) if replicas else 'one card: not run'}")
+    return {"flow_err": flow_err, "depth_err": depth_err, "seconds": secs,
+            "replicas_graph_hold": replicas}
 
 
 def shard_fit_video():
@@ -2562,7 +2990,7 @@ def graph_report(trainer):
     return rows
 
 
-def profile_iterations(scene, iters=20):
+def profile_iterations(scene, iters=10):
     """Where an iteration's time goes: a full stage of `iters` iterations
     (no densify, the final forward included) from the scene's init, as
     CUDA graphs and eager, each run once unprofiled for its wall time and
@@ -2637,15 +3065,23 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
 
     build_report()
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = round(time.perf_counter() - t, 1)
+        return out
+
     scene = bench_scene()
-    inputs = main_path_inputs(scene)
-    rows = kernel_phase(inputs)
-    launches, replayed = main_path(scene)
-    fit = fit_video_phase(scene)
-    ev = eval_phase(fit)
-    viewer = viewer_phase(fit)
-    prep = prep_phase()
-    multi = multigpu_phase(scene, inputs, fit, prep)
+    inputs = timed("main path inputs", main_path_inputs, scene)
+    rows = timed("kernels", kernel_phase, inputs)
+    launches, replayed = timed("main path", main_path, scene)
+    fit = timed("fit_video", fit_video_phase, scene)
+    ev = timed("eval", eval_phase, fit)
+    viewer = timed("viewer", viewer_phase, fit)
+    prep = timed("prep", prep_phase)
+    multi = timed("multi-GPU", multigpu_phase, scene, inputs, fit, prep)
     # K1 at K = 128 on the eval's (F = 2) and the viewer's (F = 3) own packed
     # input, K4 on the eval's two-class stream
     for where, rec in (("eval F=2", ev["packed"]), ("viewer F=3", viewer["packed"])):
@@ -2655,22 +3091,23 @@ def main():
     for (name, k, where), r in rows.items():
         if k == 128:
             log_row(name, k, where, r)
-    frame = time_frame(scene)
+    frame = timed("canonical frame", time_frame, scene)
     for mode in ("graphed", "eager"):
         m = frame[f"{mode}_mean"]
-        log(f"# canonical frame (150 camera + 300 full iterations), {mode}, {smi}, mean of "
-            f"2 in turns: camera {m['cam_ms_per_iter']:.3f} ms/iter, full "
+        log(f"# canonical frame (150 camera + 300 full iterations), {mode}, {smi}, one "
+            f"frame after a graphed warm-up frame: camera {m['cam_ms_per_iter']:.3f} ms/iter, full "
             f"{m['full_ms_per_iter']:.3f} ms/iter, {m['s_per_frame']:.3f} s/frame")
-    profile_iterations(scene)
+    timed("profile", profile_iterations, scene)
     graph_report(fit["trainer"])
-    profile_binning(inputs)
+    timed("binning profile", profile_binning, inputs)
 
     replaces = {"composite_fwd": "gflow_tpu/ops/pallas_raster.py:127",
                 "composite_fwd_cov": "gflow_tpu/ops/pallas_raster.py:127",
                 "composite_bwd": "gflow_tpu/ops/pallas_raster.py:172",
                 "bin_tail": "gflow_tpu/ops/binning.py:293"}
     kernels = []
-    for name, (src, _, _) in _build.KERNELS.items():
+    for name in FIT_KERNELS:
+        src = _build.KERNELS[name][0]
         r = rows[(name, 96, "synthetic")]
         row = {"name": name, "route": "cuda", "source": f"gflow_tpu_torch/csrc/{src}",
                "replaces": replaces[name],
@@ -2703,7 +3140,27 @@ def main():
         if k128:
             row["k128_eval_viewer_input"] = k128
         kernels.append(row)
-    log(f"# chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
+    # the port's kernel without a Pallas counterpart: the LMedS's eigensolver
+    # (prep path), timed on 512 matrices of 9 x 9 of separated spectra and
+    # on the LMedS's own
+    eig = prep["small_eig"]
+    r = eig["synthetic 9x9"]
+    kernels.append({
+        "name": "small_eig", "route": "cuda", "source": "gflow_tpu_torch/csrc/small_eig.cu",
+        "replaces": "gflow_tpu/ops/epipolar.py:34",
+        "pallas_counterpart": None,
+        "note": "no Pallas kernel: stands in for XLA's eigh and svd in the LMedS's _solve_f",
+        "launches": prep["launches"]["small_eig"], "prep_launches": prep["launches"]["small_eig"],
+        "main_path_launches": launches.get("small_eig", 0),
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "residual": r["residual"],
+        "other_inputs": {w: {k: v for k, v in x.items() if k in (
+            "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err", "residual")}
+            for w, x in eig.items() if w in ("synthetic 3x3", "main 9x9")},
+        "lmeds_vs_plain": eig["lmeds"]})
+    log(f"# chip_smoke wall time {time.perf_counter() - t_start:.1f} s; by phase (s) "
+        f"{json.dumps(phase_s)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

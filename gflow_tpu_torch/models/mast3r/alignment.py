@@ -12,12 +12,21 @@ pointmaps.
 The host NumPy parts are copied, and draw from the same
 ``np.random.default_rng(seed)``, so the refinement's inputs equal the JAX
 package's. The refinement runs in torch (autograd and a hand-written Adam
-equal to ``optax.adam`` under ``optax.cosine_decay_schedule``) as an eager
-loop on the caller's device: ``torch.optim.Adam`` cannot express its
-per-group update scaling.
+equal to ``optax.adam`` under ``optax.cosine_decay_schedule``;
+``torch.optim.Adam`` cannot express its per-group update scaling) on the
+caller's device, as the JAX package's jitted ``fori_loop`` runs it
+compiled: its state lives in fixed buffers (``_RefineBuffers``: poses,
+log-scales, both Adam moments, the step counter, the stage's lr and step
+count, the edges), the cosine lr and the bias corrections are computed on
+the device from the counter, and on a CUDA device ``CHUNK`` steps replay
+as one CUDA graph (``opt.graphs``), recorded once per (T, E, S), device
+and recording context and shared by both stages (the tail of a step count
+that ``CHUNK`` does not divide is a graph of its own length). On the CPU
+and inside ``opt.graphs.disable_graphs()`` the same steps run eagerly.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 
@@ -26,8 +35,13 @@ import torch
 
 from ... import resolve_device
 from ...eval.camera_eval import umeyama_alignment
+from ...opt import graphs
 
 ROT_SCALE = 0.05  # update scale of rotations and log-scales (see _refine)
+CHUNK = 20  # Adam steps per CUDA graph: divides both stages' 500 and 200
+# the refinement's graphs, one entry per (T, E, S), device and recording
+# context (the JAX package's jit cache of _refine keys on shapes and steps)
+REFINE_GRAPHS = graphs.GraphCache(maxsize=8)
 
 
 def make_pairs_logwin(n_frames: int, winsize: int = 3, symmetric: bool = True):
@@ -100,6 +114,91 @@ def _align_loss(poses, scales, ei, ej, src, dst, cw):
     return torch.sum(cw * torch.sum(d * d, -1)) / torch.sum(cw)
 
 
+class _RefineBuffers:
+    """The refinement's state at fixed addresses: what the loop carries
+    (``CARRIED``: poses (T, 7), log-scales (T,), Adam's moments of both and
+    the step counter ``t``, a 0-d int64) and its inputs (the stage's lr and
+    step count as 0-d float64, the per-column update scale ``group`` (7,),
+    the edges). Every step updates them in place, eager or replayed."""
+
+    CARRIED = ("poses", "scales", "m_p", "v_p", "m_s", "v_s", "t")
+
+    def __init__(self, **fields):
+        self.__dict__.update(fields)
+
+    @classmethod
+    def of(cls, poses, scales, edges, dev) -> "_RefineBuffers":
+        z = lambda x: torch.zeros_like(x, device=dev)
+        ei, ej, src, dst, cw = (x.to(dev, copy=True) for x in edges)
+        f64 = lambda: torch.zeros((), dtype=torch.float64, device=dev)
+        return cls(poses=z(poses), scales=z(scales), m_p=z(poses), v_p=z(poses),
+                   m_s=z(scales), v_s=z(scales), t=torch.zeros((), dtype=torch.int64, device=dev),
+                   lr=f64(), steps=f64(), group=z(poses[0]), ei=ei, ej=ej, src=src, dst=dst,
+                   cw=cw)
+
+    def load(self, poses, scales, edges, lr: float, t_scale: float, steps: int) -> None:
+        """Start a stage: the parameters and edges copied in, the moments and
+        the counter at zero, the stage's lr, step count and update scales."""
+        for dst, src in zip((self.poses, self.scales, self.ei, self.ej, self.src, self.dst,
+                             self.cw), (poses, scales, *edges)):
+            dst.copy_(src)
+        for x in (self.m_p, self.v_p, self.m_s, self.v_s, self.t):
+            x.zero_()
+        self.lr.fill_(lr)
+        self.steps.fill_(max(steps, 1))
+        self.group.fill_(t_scale)
+        self.group.narrow(0, 0, 4).fill_(ROT_SCALE)
+
+    def scratch(self) -> "_RefineBuffers":
+        """A copy whose carried tensors are clones (a graph's warm-up)."""
+        return _RefineBuffers(**{k: v.clone() if k in self.CARRIED else v
+                                 for k, v in vars(self).items()})
+
+
+def lr_and_bias(t, lr, steps, b1: float = 0.9, b2: float = 0.999):
+    """Step t's (0-d int64 tensor, counted from 0) update factor -lr_t and
+    Adam's bias corrections 1 - b^(t+1), on t's device in float64 (the
+    host's arithmetic: ``-cosine_decay(lr, steps, t)`` and Python's
+    ``1 - b ** (t + 1)``), rounded to float32 as the eager loop's Python
+    numbers were. lr, steps: 0-d float64 tensors."""
+    c = torch.minimum(t.to(torch.float64), steps)
+    lr_t = lr * 0.5 * (1.0 + torch.cos(math.pi * c / steps))
+    n = (t + 1).to(torch.float64)
+    return ((-lr_t).float(), (1.0 - torch.pow(b1, n)).float(),
+            (1.0 - torch.pow(b2, n)).float())
+
+
+def _adam_steps(buf: _RefineBuffers, n: int, b1: float = 0.9, b2: float = 0.999,
+                eps: float = 1e-8):
+    """n steps of the refinement in place on `buf` (see _refine)."""
+    edges = (buf.ei, buf.ej, buf.src, buf.dst, buf.cw)
+    for _ in range(n):
+        with torch.enable_grad():
+            poses = buf.poses.detach().requires_grad_()
+            scales = buf.scales.detach().requires_grad_()
+            gp, gs = torch.autograd.grad(_align_loss(poses, scales, *edges), (poses, scales))
+        gp.narrow(0, 0, 1).zero_()  # anchor frame 0's pose (rigid gauge)
+        step, bc1, bc2 = lr_and_bias(buf.t, buf.lr, buf.steps, b1, b2)
+        ups = []
+        for g, m, v in ((gp, buf.m_p, buf.v_p), (gs, buf.m_s, buf.v_s)):
+            m.copy_((1 - b1) * g + b1 * m)
+            v.copy_((1 - b2) * (g * g) + b2 * v)
+            ups.append(step * ((m / bc1) / (torch.sqrt(v / bc2) + eps)))
+        new_poses = buf.poses + ups[0] * buf.group
+        scales = buf.scales + ups[1] * ROT_SCALE
+        mu = torch.mean(scales)
+        buf.scales.copy_(scales - mu)
+        buf.poses.copy_(torch.cat([new_poses[:, :4], new_poses[:, 4:] * torch.exp(-mu)], 1))
+        buf.t += 1
+    return {}
+
+
+def _final_loss(buf: _RefineBuffers):
+    with torch.no_grad():
+        return {"loss": _align_loss(buf.poses, buf.scales, buf.ei, buf.ej, buf.src, buf.dst,
+                                    buf.cw)}
+
+
 def _refine(pose_params, log_scales, ei, ej, src, dst, cw, lr: float, t_scale: float,
             steps: int, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
     """Adam over per-frame pose (quaternion xyzw + translation, cam2world)
@@ -112,35 +211,31 @@ def _refine(pose_params, log_scales, ei, ej, src, dst, cw, lr: float, t_scale: f
     moments, eps outside the sqrt, lr cosine-decayed to 0 over `steps`) is
     scaled per group (rotations and log-scales x ROT_SCALE, translations x
     t_scale, the median edge baseline), and the global scale gauge is reset
-    (log-scales re-centred, translations rescaled by exp(-mean)). Returns
+    (log-scales re-centred, translations rescaled by exp(-mean)). On a CUDA
+    device the steps replay as CUDA graphs of CHUNK steps (module
+    docstring); a capture or replay that fails raises. Returns
     (pose_params, log_scales, loss at the result)."""
-    poses, scales = pose_params.clone(), log_scales.clone()
-    m = [torch.zeros_like(poses), torch.zeros_like(scales)]
-    v = [torch.zeros_like(poses), torch.zeros_like(scales)]
-    group = torch.full_like(poses[0], t_scale)
-    group[:4] = ROT_SCALE
-    for t in range(steps):
-        poses.requires_grad_(True)
-        scales.requires_grad_(True)
-        gp, gs = torch.autograd.grad(_align_loss(poses, scales, ei, ej, src, dst, cw),
-                                     (poses, scales))
-        poses, scales = poses.detach(), scales.detach()
-        gp[0] = 0.0
-        step = -cosine_decay(lr, steps, t)
-        bc1, bc2 = 1.0 - b1 ** (t + 1), 1.0 - b2 ** (t + 1)
-        ups = []
-        for k, g in enumerate((gp, gs)):
-            m[k] = (1 - b1) * g + b1 * m[k]
-            v[k] = (1 - b2) * (g * g) + b2 * v[k]
-            ups.append(step * ((m[k] / bc1) / (torch.sqrt(v[k] / bc2) + eps)))
-        poses = poses + ups[0] * group
-        scales = scales + ups[1] * ROT_SCALE
-        mu = torch.mean(scales)
-        scales = scales - mu
-        poses = torch.cat([poses[:, :4], poses[:, 4:] * torch.exp(-mu)], 1)
-    with torch.no_grad():
-        loss = _align_loss(poses, scales, ei, ej, src, dst, cw)
-    return poses, scales, loss
+    dev = pose_params.device
+    edges = (ei, ej, src, dst, cw)
+    if graphs.graphed(dev):
+        key = graphs.graph_key(("refine", pose_params.shape[0], *src.shape[:2]), dev)
+        run = REFINE_GRAPHS.entry(key, lambda: _RefineBuffers.of(pose_params, log_scales, edges,
+                                                                 dev), dev)
+        checked = graphs.sync_check(dev)
+    else:
+        run = graphs.Eager(_RefineBuffers.of(pose_params, log_scales, edges, dev))
+        checked = contextlib.nullcontext()
+    run.buffers.load(pose_params, log_scales, edges, lr, t_scale, steps)
+
+    def chunk(n):
+        return lambda b: _adam_steps(b, n, b1, b2, eps)
+
+    with checked:
+        for n in [CHUNK] * (steps // CHUNK) + ([steps % CHUNK] if steps % CHUNK else []):
+            run(f"adam{n}", chunk(n))
+        loss = run("loss", _final_loss)["loss"]
+    buf = run.buffers
+    return buf.poses.clone(), buf.scales.clone(), loss.clone()
 
 
 def global_align(

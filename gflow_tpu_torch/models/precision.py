@@ -21,12 +21,16 @@ import torch
 
 @contextmanager
 def fp32_math(cudnn: bool = True):
-    flags = torch.backends.cudnn
-    matmul = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
+    # the CUDA matmul flag round trip, not the global matmul precision's: a
+    # caller's mix of TF32 settings (CUDA's allowed by allow_tf32, the CPU
+    # backend's by set_float32_matmul_precision("high")) makes
+    # torch.get_float32_matmul_precision() raise
+    flags, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    prev = matmul.allow_tf32
+    matmul.allow_tf32 = False
     try:
         with flags.flags(enabled=flags.enabled and cudnn, benchmark=flags.benchmark,
                          deterministic=flags.deterministic, allow_tf32=False):
             yield
     finally:
-        torch.set_float32_matmul_precision(matmul)
+        matmul.allow_tf32 = prev

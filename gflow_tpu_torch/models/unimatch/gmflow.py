@@ -161,7 +161,9 @@ def _merge_windows(x, s, H, W):
     return x.reshape(B, H, W, -1)
 
 
-@functools.lru_cache(maxsize=8)
+# unbounded: a CUDA graph recorded on a mask reads it in place, so a mask
+# must live as long as the graph (one per image size, split and device)
+@functools.cache
 def _shift_mask(H: int, W: int, s: int, device: str) -> torch.Tensor:
     """(s*s, L, L) additive mask for shifted windows (upstream
     generate_shift_window_attn_mask): after rolling by half a window,
@@ -177,6 +179,16 @@ def _shift_mask(H: int, W: int, s: int, device: str) -> torch.Tensor:
     win = img.reshape(s, wh, s, ww).transpose(0, 2, 1, 3).reshape(s * s, wh * ww)
     diff = win[:, None, :] - win[:, :, None]
     return torch.from_numpy(np.where(diff != 0, -100.0, 0.0).astype(np.float32)).to(device)
+
+
+@functools.cache
+def _constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """`values` as a tensor on `device`, made once: a CUDA graph's capture
+    may not copy from the host, and a recorded graph reads the kept
+    tensor. Made as a normal tensor, not an inference one, so that a
+    forward with grad may save it."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)
 
 
 def shift_window_attn_mask(H: int, W: int, splits: int, device=None) -> torch.Tensor:
@@ -293,7 +305,7 @@ def local_correlation_softmax(feat0, feat1, radius: int):
         offs.append((dx, dy))
     corr = torch.stack(corr, -1) / math.sqrt(C)
     corr = torch.where(torch.stack(valid, -1)[None], corr, -1e9)
-    off = torch.tensor(offs, dtype=torch.float32, device=dev)
+    off = _constant(tuple(offs), torch.float32, dev)
     return torch.matmul(torch.softmax(corr, -1), off)
 
 
@@ -493,8 +505,7 @@ class GMFlow(nn.Module):
         B = img0.shape[0]
         dev = img0.device
         # upstream normalize_img: ImageNet mean/std, not 2x-1
-        mean = torch.tensor(_MEAN, dtype=img0.dtype, device=dev)
-        std = torch.tensor(_STD, dtype=img0.dtype, device=dev)
+        mean, std = _constant(_MEAN, img0.dtype, dev), _constant(_STD, img0.dtype, dev)
         feats = self.backbone(_nchw((torch.cat([img0, img1]) - mean) / std))
         feats0 = [_nhwc(f[:B]) for f in feats]
         feats1 = [_nhwc(f[B:]) for f in feats]

@@ -7,9 +7,9 @@ named by a hash of the source and the flags, so an edited source rebuilds
 and an unchanged one is reused. ``build_all`` starts one ``nvcc`` per
 source, all together.
 
-Every C entry point takes its tensors as raw device pointers plus the
-current CUDA stream of their device, launches, and returns
-``cudaGetLastError()``;
+Every C entry point takes its tensors as raw device pointers (an optional
+one may be 0, a null pointer) plus the current CUDA stream of their
+device, launches, and returns ``cudaGetLastError()``;
 ``launch`` raises when that is nonzero and counts the launch in
 ``LAUNCHES``. A launch made while a CUDA graph is recorded runs only when
 the graph is replayed: inside ``recording()`` it goes to the recording's
@@ -47,6 +47,7 @@ KERNELS = {
     "composite_bwd": ("composite.cu", "gflow_composite_bwd",
                       (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I)),
     "bin_tail": ("pack.cu", "gflow_bin_tail", (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I)),
+    "small_eig": ("small_eig.cu", "gflow_small_eig", (_P, _P, _I, _I)),
 }
 
 # launches per kernel name since the last reset (``LAUNCHES.clear()``):

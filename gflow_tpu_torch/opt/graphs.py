@@ -14,7 +14,13 @@ code calls (``render_jit``, ``render_traj_jit``, the trainer's
 ``_compiled_gather_project``, ``_quantize_u8``), one compile per static
 call shape in an lru cache; here each is a ``ForwardCache``: a pure
 forward function of fixed-shape inputs, recorded once per key and
-replayed.
+replayed. So is the prior preparation's compiled code: the prep models'
+``jax.jit(model.apply)`` (``module_call``: GMFlow, MASt3R and their mesh
+replicas, keyed on the model's parameter storage), the jitted LMedS
+(``ops/epipolar.py``) and ``sharded_train_step``'s jitted B-frame step
+(``parallel/multichip.py``, one capture over its mesh's cards); the
+global alignment's jitted ``fori_loop`` is a ``GraphCache`` of chunks of
+Adam steps on fixed buffers (``models/mast3r/alignment.py``).
 
 - ``StageGraphs`` is one cache entry: the static buffers of one key and the
   graphs recorded on them, by name. A graph is recorded at its first use
@@ -30,9 +36,10 @@ replayed.
   ``recording_context()``. A forward function's key is its static
   arguments, the shapes and dtypes of its inputs (a capacity among them),
   the device and ``recording_context()``; per-call values (a camera, a
-  point count) are data in its buffers, loaded before each replay. Its
-  outputs are cloned before the next replay can rewrite them, and the
-  graphs of one ``ForwardCache`` share one memory pool.
+  point count) are data in its buffers, loaded before each replay (host
+  tensors through pinned memory, so no call before a replay blocks the
+  host). Its outputs are cloned before the next replay can rewrite them,
+  and the graphs of one ``ForwardCache`` share one memory pool.
 - A graph may span several cards (the tile-band mode: ``cfg.render``'s
   ``band_devices``): each other card's stream joins the capture through an
   event, the card's allocations go to a pool of their own for the graph's
@@ -57,6 +64,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import itertools
 import time
 
 import torch
@@ -113,6 +121,26 @@ def stage_key(cfg, capacity: int, dev: torch.device, weights) -> tuple:
     return (cfg, capacity, _indexed(dev), weights, recording_context())
 
 
+def graph_key(static, dev: torch.device) -> tuple:
+    """The cache key of graphs recorded on fixed buffers (the alignment's
+    Adam steps): their static arguments and shapes, the device and
+    ``recording_context()``."""
+    return (static, _indexed(dev), recording_context())
+
+
+def module_key(model: torch.nn.Module) -> tuple:
+    """What a recorded forward of `model` depends on besides its inputs:
+    its class and configuration; the storage of its parameters and buffers,
+    which a graph reads in place (a model moved with ``.to`` or loaded into
+    new tensors records anew, one loaded into its own tensors replays the
+    same graph on the new values); its training flag, grad and inference
+    mode."""
+    state = tuple((t.data_ptr(), tuple(t.shape), t.dtype)
+                  for t in itertools.chain(model.parameters(), model.buffers()))
+    return (type(model), getattr(model, "config", None), state, model.training,
+            torch.is_grad_enabled(), torch.is_inference_mode_enabled())
+
+
 def tree_map(fn, tree):
     """fn applied to every tensor of a (nested) NamedTuple, tuple or dict;
     other leaves are kept."""
@@ -126,10 +154,22 @@ def tree_map(fn, tree):
     return tree
 
 
+def _staged(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """x ready for a copy to `dev` that does not block the host: a host
+    tensor bound for a card goes through a pinned copy of its own (the
+    caller may change x at once; the pinned block lives until the copy is
+    done), so no synchronising call precedes a replay."""
+    if x.device.type != "cpu" or dev.type != "cuda":
+        return x
+    staged = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    return staged.copy_(x)
+
+
 def copy_into(dst, src):
-    """Copy every tensor of `src` into the tensor at the same place in `dst`."""
+    """Copy every tensor of `src` into the tensor at the same place in
+    `dst`, without blocking the host (``_staged``)."""
     if isinstance(dst, torch.Tensor):
-        dst.copy_(src)
+        dst.copy_(_staged(src, dst.device), non_blocking=True)
     elif isinstance(dst, dict):
         for k in dst:
             copy_into(dst[k], src[k])
@@ -284,10 +324,12 @@ class GraphCache:
 
 class ForwardBuffers:
     """The static inputs of a forward graph: copies on the card of one
-    call's input tensors, into which each call's inputs are loaded."""
+    call's input tensors, into which each call's inputs are loaded (host
+    tensors through pinned memory, without blocking the host)."""
 
     def __init__(self, inputs: dict, dev: torch.device):
-        self.inputs = tree_map(lambda x: x.to(dev, copy=True), inputs)
+        self.inputs = tree_map(
+            lambda x: _staged(x, dev).to(dev, copy=True, non_blocking=True), inputs)
 
     def load(self, inputs: dict) -> None:
         copy_into(self.inputs, inputs)
@@ -342,6 +384,17 @@ class ForwardCache(GraphCache):
         with sync_check(dev):
             out = entry(self.name, lambda b: fn(**b.inputs))
             return tree_map(torch.clone, out)
+
+
+def module_call(cache: ForwardCache, model: torch.nn.Module, *inputs, device=None):
+    """model(*inputs) on `device` (default: the first input's) through
+    `cache`: on a CUDA device the replay of a graph recorded once per
+    ``module_key(model)`` and input shapes, the inputs copied into its
+    buffers and its outputs cloned; eagerly on the CPU and inside
+    ``disable_graphs()``."""
+    dev = inputs[0].device if device is None else torch.device(device)
+    return cache(module_key(model), lambda **kw: model(*kw.values()),
+                 {f"x{i}": x for i, x in enumerate(inputs)}, dev)
 
 
 # the cache of stages run without a cache of their own (train_stage's graphs=None)

@@ -127,16 +127,22 @@ def ambient_tile_devices() -> tuple | None:
     return mesh.flat
 
 
-def sharded_batch_apply(model, mesh: Mesh):
+def sharded_batch_apply(model, mesh: Mesh, graphs=None):
     """Wrap a batched model call model(*batched) -> batched outputs so that
     the batch is split over the mesh's "data" axis: one replica of the
     model on the first device of each data row, chunk i of every input on
     replica i, the outputs (tensors, or tuples and dicts of them) back on
     the model's own device, concatenated. The batch must divide by the
-    axis size; callers pad and crop. Replicas run one after another from
+    axis size; callers pad and crop. Each replica's forward goes through
+    `graphs` (an ``opt.graphs.ForwardCache``; default: one of this call's
+    own): on the cards, the replay of a CUDA graph of its own on its own
+    card (``opt.graphs.module_call``). Replicas run one after another from
     this thread, so their device work overlaps as far as the model does
     not wait for the device; a replica on the model's device is the model
     itself."""
+    from ..opt.graphs import ForwardCache, module_call
+
+    cache = ForwardCache("replicas", 8) if graphs is None else graphs
     devs = [row[0] for row in mesh.devices]
     home = next(model.parameters()).device
     replicas = {}
@@ -149,7 +155,8 @@ def sharded_batch_apply(model, mesh: Mesh):
         if B % len(devs):
             raise ValueError(f"batch {B} does not divide by the {len(devs)} data rows")
         per = B // len(devs)
-        outs = [replicas[d](*(x[i * per:(i + 1) * per].to(d) for x in batched))
+        outs = [module_call(cache, replicas[d], *(x[i * per:(i + 1) * per] for x in batched),
+                            device=d)
                 for i, d in enumerate(devs)]
         return _concat(outs, home)
 

@@ -13,7 +13,8 @@ per-Gaussian sum over bands is the packed gather's transpose
 (``index_add_``) there.
 
 ALSO HERE, a batched B-frame harness (``composite_tiles_batched``,
-``batched_forward``, ``sharded_train_step``, ``dryrun_step``): B
+``batched_forward``, ``sharded_train_step``, whose step replays a CUDA
+graph over the mesh's cards, ``dryrun_step``): B
 independent frame fits, frame b composited on the data row b * D // B of
 a ("data", "tile") mesh, in bands over that row's tile devices, through
 the same band compositor. It is evidence machinery (the equality of a
@@ -33,6 +34,7 @@ from ..ops import cuda_raster
 from ..ops.binning import tile_grid
 from ..ops.projection import project_gaussians, supported_max_radius
 from ..ops.render import RenderConfig, bin_with
+from ..opt.graphs import ForwardCache
 from ..opt.losses import LossWeights, compute_losses
 from ..opt.state import FrameState, Params, Targets, adam_update, init_frame_state, init_opt_state
 from ..opt.train import StageConfig, StageDynamics, _activate, _gate_grads, train_stage
@@ -89,17 +91,24 @@ def batched_forward(bparams: Params, bstate: FrameState, btargets: Targets, intr
     return torch.stack(totals).mean(), {"metrics": metrics, "rgb": img[..., :3]}
 
 
-def sharded_train_step(mesh: Mesh, cfg: StageConfig, dyn: StageDynamics):
+def sharded_train_step(mesh: Mesh, cfg: StageConfig, dyn: StageDynamics,
+                       graphs: ForwardCache | None = None):
     """(step, data_shard): step(bparams, bopt, bstate, btargets, intr) runs
     one batched forward over `mesh`, the gated gradients per frame and
     Adam, and returns (bparams, bopt, loss, rgb); data_shard moves a
-    batched tree to the mesh's first device, where the batch lives."""
+    batched tree to the mesh's first device, where the batch lives. On the
+    cards the step replays one CUDA graph per input shape that spans the
+    mesh's cards (kept in `graphs`, default a cache of this step's own),
+    as the JAX package jits it; eagerly on the CPU and inside
+    ``opt.graphs.disable_graphs()``. The step may be called any number of
+    times."""
     home = mesh.flat[0]
+    cache = ForwardCache("train_step", 4) if graphs is None else graphs
 
     def data_shard(tree):
         return type(tree)(*(x.to(home) for x in tree))
 
-    def step(bparams, bopt, bstate, btargets, intr):
+    def step_fn(bparams, bopt, bstate, btargets, intr):
         leaves = [x.detach().requires_grad_() for x in bparams]
         loss, aux = batched_forward(Params(*leaves), bstate, btargets, intr, cfg, dyn.weights,
                                     mesh)
@@ -111,6 +120,11 @@ def sharded_train_step(mesh: Mesh, cfg: StageConfig, dyn: StageDynamics):
         bparams2, bopt2 = adam_update(Params(*(x.detach() for x in leaves)), grads, bopt,
                                       dyn.lr, dyn.lr_camera, dyn.lr)
         return bparams2, bopt2, loss.detach(), aux["rgb"].detach()
+
+    def step(bparams, bopt, bstate, btargets, intr):
+        return cache(("train_step", mesh.devices, cfg, dyn), step_fn,
+                     dict(bparams=bparams, bopt=bopt, bstate=bstate, btargets=btargets,
+                          intr=intr), home, mesh.flat)
 
     return step, data_shard
 
@@ -171,12 +185,13 @@ def dryrun_stage(mesh: Mesh, iterations: int = 12, W: int = 64, H: int = 48,
     return total, n_alive
 
 
-def dryrun_step(mesh: Mesh, B: int | None = None, W: int = 64, H: int = 48,
+def step_inputs(mesh: Mesh, B: int | None = None, W: int = 64, H: int = 48,
                 capacity: int = 512, seed: int = 0, max_per_tile: int = 64,
-                max_tiles_per_gaussian: int = 16):
-    """Build batched inputs (the JAX dryrun_step's draws from `seed`), run
-    ONE batched step over the mesh and check its outputs. Returns the
-    mean loss before the update."""
+                max_tiles_per_gaussian: int = 16, focal: float = 60.0):
+    """The batched step's configuration and inputs (the JAX dryrun_step's
+    draws from `seed`, B frames, default the mesh's data rows, a camera of
+    focal length `focal` px): (cfg, dyn, (bparams, bopt, bstate, btargets,
+    intr)) on the mesh's first device."""
     if B is None:
         B = mesh.shape.get("data", 1)
     dev = mesh.flat[0]
@@ -195,14 +210,24 @@ def dryrun_step(mesh: Mesh, B: int | None = None, W: int = 64, H: int = 48,
                       render=RenderConfig(max_per_tile=max_per_tile,
                                           max_tiles_per_gaussian=max_tiles_per_gaussian))
     dyn = StageDynamics(lr=1e-2, lr_camera=1e-3, weights=LossWeights(rgb=1.0, depth=0.1))
-    step, data_shard = sharded_train_step(mesh, cfg, dyn)
-    bparams, bstate, btargets = data_shard(bparams), data_shard(bstate), data_shard(btargets)
-    bopt = init_opt_state(bparams)
-    intr = torch.tensor([60.0, 60.0, W / 2, H / 2], device=dev)
-    bparams2, _, loss, _ = step(bparams, bopt, bstate, btargets, intr)
+    to = lambda tree: type(tree)(*(x.to(dev) for x in tree))
+    bparams = to(bparams)
+    intr = torch.tensor([focal, focal, W / 2, H / 2], device=dev)
+    return cfg, dyn, (bparams, init_opt_state(bparams), to(bstate), to(btargets), intr)
+
+
+def dryrun_step(mesh: Mesh, B: int | None = None, W: int = 64, H: int = 48,
+                capacity: int = 512, seed: int = 0, max_per_tile: int = 64,
+                max_tiles_per_gaussian: int = 16):
+    """Build batched inputs (step_inputs), run ONE batched step over the
+    mesh and check its outputs. Returns the mean loss before the update."""
+    cfg, dyn, args = step_inputs(mesh, B, W, H, capacity, seed, max_per_tile,
+                                 max_tiles_per_gaussian)
+    step, _ = sharded_train_step(mesh, cfg, dyn)
+    bparams2, _, loss, _ = step(*args)
     if not bool(torch.isfinite(loss)):
         raise RuntimeError("the batched step produced a non-finite loss")
-    if not float((bparams2.xyz - bparams.xyz).abs().max()) > 0:
+    if not float((bparams2.xyz - args[0].xyz).abs().max()) > 0:
         raise RuntimeError("the batched step did not update the parameters")
     return float(loss)
 

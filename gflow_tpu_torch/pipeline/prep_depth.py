@@ -12,9 +12,11 @@ Counterpart of ``gflow_tpu/pipeline/prep_depth.py``. The weights are a
 released MASt3R/DUSt3R ``.pth`` or the JAX package's converted ``.npz``
 (``--checkpoint`` or ``$GFLOW_MAST3R_WEIGHTS``); without them it raises
 ``FileNotFoundError``. Inference and the alignment's refinement run on
-``cuda`` unless the caller passes ``device="cpu"``; ``mesh_devices=N``
-batches N pairs at a time, one on each of N devices
-(``parallel.sharded_batch_apply``).
+``cuda`` unless the caller passes ``device="cpu"``, on the card as CUDA
+graphs (the model's forward per input shape, ``DEPTH_GRAPHS``; the
+alignment's Adam steps, ``models.mast3r.alignment``), as the JAX module
+jits them; ``mesh_devices=N`` batches N pairs at a time, one on each of N
+devices (``parallel.sharded_batch_apply``, a graph per replica).
 
 As in the JAX module, frames are resized for inference with the short
 side to `inference_size` (512: a 854x480 frame runs at 911x512, 1824
@@ -34,10 +36,14 @@ import torch
 from .. import resolve_device
 from ..core.io import imwrite, load_image, resize_to, write_camera
 from ..models.mast3r import Mast3rModel, convert, global_align, make_pairs_logwin
+from ..opt import graphs
 from ..viz.colormap import colormap_lookup, print_color
 from .prep_flow import batch_runner, list_frames
 
 CKPT_ENV = "GFLOW_MAST3R_WEIGHTS"
+# the two-view model's forward graphs (the JAX module's jax.jit(model.apply)):
+# one per model, input shapes and device
+DEPTH_GRAPHS = graphs.ForwardCache("mast3r", 8)
 
 
 def load_weights(path=None) -> dict | None:
@@ -80,7 +86,7 @@ def main(img_dir: str, checkpoint: Optional[str] = None, inference_size: int = 5
         model.load_state_dict(params, strict=True)
     dev = resolve_device(device)
     model = model.to(dev).eval()
-    run_batch, B = batch_runner(model, mesh_devices, dev)
+    run_batch, B = batch_runner(model, mesh_devices, dev, DEPTH_GRAPHS)
 
     img_dir = str(img_dir)
     depth_dir = img_dir + "_depth_mast3r_s2"

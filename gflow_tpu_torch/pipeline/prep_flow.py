@@ -9,9 +9,11 @@ released UniMatch ``.pth`` or the JAX package's converted ``.npz``
 (``--checkpoint`` or ``$GFLOW_UNIMATCH_WEIGHTS``;
 ``models.unimatch.convert.load_weights``); without them it raises
 ``FileNotFoundError``. Inference runs on ``cuda`` unless the caller passes
-``device="cpu"``, under ``torch.inference_mode()``, in fp32;
+``device="cpu"``, under ``torch.inference_mode()``, in fp32; on the card
+each forward replays a CUDA graph recorded once per model and input shape
+(``FLOW_GRAPHS``), as the JAX module jits ``model.apply``;
 ``mesh_devices=N`` batches N directed pairs at a time, one on each of N
-devices (``parallel.sharded_batch_apply``). CLI:
+devices (``parallel.sharded_batch_apply``, a graph per replica). CLI:
 ``python -m gflow_tpu_torch.cli.prep_flow``.
 """
 from __future__ import annotations
@@ -26,9 +28,13 @@ import torch
 from .. import resolve_device
 from ..core.io import imwrite, load_image, write_flow
 from ..models.unimatch import GMFlow, convert, forward_backward_consistency
+from ..opt import graphs
 from ..viz.colormap import print_color
 
 CKPT_ENV = "GFLOW_UNIMATCH_WEIGHTS"
+# GMFlow's forward graphs (the JAX module's jax.jit(model.apply)): one per
+# model, input shapes and device
+FLOW_GRAPHS = graphs.ForwardCache("gmflow", 8)
 
 
 def load_weights(path=None) -> dict | None:
@@ -63,7 +69,7 @@ def main(img_dir: str, checkpoint: Optional[str] = None, resize: Optional[int] =
         model.load_state_dict(params, strict=True)
     dev = resolve_device(device)
     model = model.to(dev).eval()
-    run_batch, B = batch_runner(model, mesh_devices, dev)
+    run_batch, B = batch_runner(model, mesh_devices, dev, FLOW_GRAPHS)
 
     out_dir = str(img_dir) + "_flow_unimatch"
     os.makedirs(out_dir, exist_ok=True)
@@ -102,14 +108,16 @@ def main(img_dir: str, checkpoint: Optional[str] = None, resize: Optional[int] =
     return out_dir
 
 
-def batch_runner(model, mesh_devices: int, device):
-    """(run, B): the model itself with batch 1, or with mesh_devices > 0 a
-    sharded_batch_apply of it over a ("data",) mesh of that many devices
-    of device's kind (parallel.make_mesh: cards must be visible), batch
-    mesh_devices."""
+def batch_runner(model, mesh_devices: int, device, cache: graphs.ForwardCache):
+    """(run, B): the model's forward through `cache` (on the card a CUDA
+    graph per model and input shapes, ``opt.graphs.module_call``) with
+    batch 1, or with mesh_devices > 0 a sharded_batch_apply of it over a
+    ("data",) mesh of that many devices of device's kind
+    (parallel.make_mesh: cards must be visible), one graph per replica,
+    batch mesh_devices."""
     if not mesh_devices:
-        return model, 1
+        return (lambda *x: graphs.module_call(cache, model, *x)), 1
     from ..parallel.mesh import make_mesh, sharded_batch_apply
 
     mesh = make_mesh(mesh_devices, data_parallel=mesh_devices, device=device.type)
-    return sharded_batch_apply(model, mesh), mesh.shape["data"]
+    return sharded_batch_apply(model, mesh, cache), mesh.shape["data"]

@@ -9,9 +9,13 @@ coverage support exact where the plain coverage is clear of 0 by 1e-3;
 gradients normalized by max |ref| per column, atol 5e-4; K3 bitwise
 repeatable (no float atomics); K4 (the binning tail) exact, on the
 sorted-stream cases of tests/test_torch_tail_cases.py. The stage, banded
-or not, and the host-called renders and projections run as CUDA graphs
-equal the same calls eager exactly, deterministic algorithms on; a banded
-stage equals the unbanded one to 1e-6."""
+or not, the host-called renders and projections, and the prior
+preparation's compiled paths (the alignment's Adam steps, the GMFlow and
+MASt3R forwards, the LMedS, the B-frame step) run as CUDA graphs equal the
+same calls eager exactly, deterministic algorithms on; a banded stage
+equals the unbanded one to 1e-6. small_eig (the LMedS's eigensolver)
+against torch.linalg.eigh on separated spectra: residual |A v - l v| /
+|A| <= 1e-5 and |v . v_eigh| >= 1 - 1e-5."""
 import contextlib
 
 import numpy as np
@@ -478,14 +482,9 @@ def test_mast3r_on_the_card_matches_the_cpu(dev, monkeypatch):
             torch.testing.assert_close(g[k].cpu(), w[k], atol=2e-4, rtol=1e-3)
 
 
-def test_epipolar_on_the_card_matches_the_cpu(dev):
-    """The LMedS on the card with the CPU's draws, on a rigid scene's flow
-    with a block moving against it: normalized error maps within 1e-3 and
-    the same moving mask."""
-    from gflow_tpu_torch.ops.epipolar import lmeds_draws
-    from gflow_tpu_torch.pipeline.prep_moveseg import epipolar_error_map
-
-    H, W = 120, 160
+def rigid_flow(H, W):
+    """Forward flow (H, W, 2) of a rigid scene (smooth depth) under a
+    rotating and translating camera."""
     yy, xx = np.meshgrid(np.arange(H, dtype=np.float64), np.arange(W, dtype=np.float64),
                          indexing="ij")
     Z = 3 + np.sin(xx / 23) * np.cos(yy / 17)
@@ -494,8 +493,19 @@ def test_epipolar_on_the_card_matches_the_cpu(dev):
     th = 0.03
     R = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0], [-np.sin(th), 0, np.cos(th)]])
     Q = P @ R.T + np.array([0.15, 0.05, 0.1])
-    flow = np.stack([f * Q[..., 0] / Q[..., 2] + W / 2 - xx,
+    return np.stack([f * Q[..., 0] / Q[..., 2] + W / 2 - xx,
                      f * Q[..., 1] / Q[..., 2] + H / 2 - yy], -1).astype(np.float32)
+
+
+def test_epipolar_on_the_card_matches_the_cpu(dev):
+    """The LMedS on the card with the CPU's draws, on a rigid scene's flow
+    with a block moving against it: normalized error maps within 1e-3 and
+    the same moving mask."""
+    from gflow_tpu_torch.ops.epipolar import lmeds_draws
+    from gflow_tpu_torch.pipeline.prep_moveseg import epipolar_error_map
+
+    H, W = 120, 160
+    flow = rigid_flow(H, W)
     block = (slice(40, 60), slice(50, 80))
     flow[block] = (-6.0, 4.0)
     draws = lmeds_draws(H * W)
@@ -726,10 +736,11 @@ def flat_arrays(tree):
     return [np.asarray(tree, np.float64)]
 
 
-def graph_vs_eager(call, checked=False):
+def graph_vs_eager(call, checked=False, launched=("bin_tail", "composite_fwd")):
     """call() as CUDA graphs (under sync_check("error") with checked) and
     inside disable_graphs(), deterministic algorithms on: 0 apart, the same
-    kernel launches. Returns the graphed run's replays per graph name."""
+    kernel launches, `launched` among them. Returns the graphed run's
+    replays per graph name."""
     from gflow_tpu_torch.opt import graphs as stage_graphs
 
     runs = []
@@ -751,7 +762,7 @@ def graph_vs_eager(call, checked=False):
     (g, l_g, r_g), (e, l_e, r_e) = runs
     assert [a.shape for a in g] == [a.shape for a in e]
     assert all(np.array_equal(a, b) for a, b in zip(g, e))
-    assert l_g == l_e and set(l_g) >= {"bin_tail", "composite_fwd"}, (l_g, l_e)
+    assert l_g == l_e and set(l_g) >= set(launched), (l_g, l_e)
     assert r_g and not r_e, (r_g, r_e)
     return r_g
 
@@ -857,3 +868,170 @@ def test_banded_stage_over_cards_replays_graphs(dev):
     two_cards()
     n = torch.cuda.device_count()
     check_banded_stage_graphs(dev, tuple(torch.device("cuda", b % n) for b in range(4)))
+
+
+def separated_symmetric(n, batch, seed=0):
+    """Seeded symmetric (batch, n, n) float32 matrices Q diag(l) Q^T whose
+    smallest eigenvalue lies 0.1-0.6 below the next."""
+    rng = np.random.default_rng(seed)
+    Q = np.linalg.qr(rng.normal(size=(batch, n, n)))[0]
+    lam = np.sort(rng.uniform(-1, 1, (batch, n)), axis=1)
+    lam[:, 0] = lam[:, 1] - 0.1 - rng.uniform(0, 0.5, batch)
+    return torch.from_numpy(((Q * lam[:, None, :]) @ Q.transpose(0, 2, 1)).astype(np.float32))
+
+
+@pytest.mark.parametrize("n", [3, 9])
+def test_small_eig_matches_plain(dev, n):
+    """512 matrices: the kernel's eigenvector has a residual |A v - l v| /
+    |A| <= 1e-5 (l = v^T A v) and agrees with eigh's up to sign; one
+    launch."""
+    from gflow_tpu_torch.ops import epipolar
+
+    A = separated_symmetric(n, 512).to(dev)
+    _build.LAUNCHES.clear()
+    v = epipolar.small_eig(A)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {"small_eig": 1}
+    lam = torch.einsum("bi,bij,bj->b", v, A, v)
+    res = torch.linalg.vector_norm(A @ v[..., None] - lam[:, None, None] * v[..., None],
+                                   dim=(1, 2)) / torch.linalg.matrix_norm(A)
+    dot = (v * epipolar.smallest_eigvec_plain(A)).sum(-1).abs()
+    assert float(res.max()) <= 1e-5 and float(dot.min()) >= 1 - 1e-5, (res.max(), dot.min())
+
+
+def test_graphed_lmeds_equals_eager_under_sync_check(dev):
+    """The LMedS on a rigid scene's flow (rigid_flow, a block moving
+    against it) recorded and replayed under sync_check("error"): F and the inliers
+    equal eager, four small_eig launches a call (512 and 1 of 9 x 9, 512
+    and 1 of 3 x 3); the error map of the plain eigh path on the card
+    within 1e-2 and at most 0.1% of the mask flipped (chip_smoke.py's
+    MAP_ATOL and MASK_FLIPS: the refit's null vector of a near-singular
+    A^T A is float32 noise over eps |A^T A| / gap, which the two solvers
+    round apart; 1.6e-3 measured at 128x96)."""
+    from gflow_tpu_torch.ops import epipolar
+    from gflow_tpu_torch.pipeline.prep_moveseg import epipolar_error_map, uv_grid
+
+    H, W = 96, 128
+    flow = rigid_flow(H, W)
+    flow[30:50, 40:70] = (-6.0, 4.0)  # a block moving against the scene
+    x1 = torch.from_numpy(uv_grid(H, W).reshape(-1, 2)).to(dev)
+    x2 = x1 + torch.from_numpy(np.stack([2 * flow[..., 0] / (W - 1), 2 * flow[..., 1] / (H - 1)],
+                                        -1).reshape(-1, 2)).to(dev)
+    draws = epipolar.lmeds_draws(H * W)
+    replays = graph_vs_eager(lambda: epipolar.find_fundamental_lmeds(x1, x2, draws=draws),
+                             checked=True, launched=("small_eig",))
+    assert replays == {"lmeds": 1}
+    got = epipolar_error_map(flow, device=dev, draws=draws)
+    with _plain_eig(), stage_graphs_off():
+        want = epipolar_error_map(flow, device=dev, draws=draws)
+    np.testing.assert_allclose(got, want, atol=1e-2)
+    assert ((got > 0.01) != (want > 0.01)).mean() <= 1e-3
+
+
+@contextlib.contextmanager
+def _plain_eig():
+    from unittest import mock
+
+    from gflow_tpu_torch.ops import epipolar
+
+    with mock.patch.object(epipolar, "smallest_eigvec", epipolar.smallest_eigvec_plain):
+        yield
+
+
+def stage_graphs_off():
+    from gflow_tpu_torch.opt import graphs as stage_graphs
+
+    return stage_graphs.disable_graphs()
+
+
+def test_graphed_alignment_equals_eager(dev):
+    """The alignment's refinement (4 frames, 6 edges, 256 samples; 45 steps:
+    two chunk graphs and a tail) recorded under sync_check("error") equals
+    the eager loop exactly."""
+    from gflow_tpu_torch.models.mast3r import alignment
+
+    rng = np.random.default_rng(0)
+    T, E, S = 4, 6, 256
+    q = np.c_[rng.normal(0, 0.02, (T, 3)), np.ones(T)]
+    src = rng.normal(0, 1, (E, S, 3)) + [0, 0, 3]
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=dev)
+    args = (t(np.c_[q / np.linalg.norm(q, axis=1, keepdims=True), rng.normal(0, 0.1, (T, 3))]),
+            t(rng.normal(0, 0.1, T)), t([0, 1, 2, 3, 0, 1], torch.int64),
+            t([1, 2, 3, 0, 2, 3], torch.int64), t(src), t(src + rng.normal(0, 0.05, src.shape)),
+            t(rng.uniform(0.5, 2.0, (E, S))))
+    replays = graph_vs_eager(lambda: alignment._refine(*args, 0.07, 0.3, 45), checked=True,
+                             launched=())
+    assert replays == {f"adam{alignment.CHUNK}": 2, "adam5": 1, "loss": 1}, replays
+
+
+def test_graphed_prep_models_equal_eager(dev):
+    """GMFlow (2 layers, 2 refinements, splits 2 and 4) and MASt3R
+    catmlp+dpt at small widths through prep's batch runner, recorded under
+    sync_check("error"): equal to the eager forwards; a model moved to the
+    card anew records anew."""
+    from gflow_tpu_torch.models.mast3r import Mast3rConfig, Mast3rModel, convert as mconvert
+    from gflow_tpu_torch.models.random_weights import seeded_state_dict
+    from gflow_tpu_torch.models.unimatch import GMFlow, GMFlowConfig, convert
+    from gflow_tpu_torch.pipeline import prep_depth, prep_flow
+
+    flow = GMFlow(GMFlowConfig(feature_channels=32, num_transformer_layers=2,
+                               num_reg_refine=2, attn_splits_list=(2, 4))).eval()
+    flow.load_state_dict(seeded_state_dict(convert.expected_torch_keys(2, 32), 0, 0.5))
+    mast3r = Mast3rModel(Mast3rConfig(enc_dim=32, enc_depth=2, enc_heads=2, dec_dim=24,
+                                      dec_depth=2, dec_heads=2, desc_dim=6,
+                                      head="catmlp+dpt")).eval()
+    sd = seeded_state_dict(mconvert.expected_torch_keys(2, 2, 32, 24, 16, "catmlp+dpt", 6), 0,
+                           0.3)
+    mast3r.load_state_dict({k: v for k, v in sd.items() if "refinenet4.resConfUnit1" not in k})
+    rng = np.random.default_rng(2)
+    for model, cache, hw, name in ((flow, prep_flow.FLOW_GRAPHS, (64, 96), "gmflow"),
+                                   (mast3r, prep_depth.DEPTH_GRAPHS, (48, 32), "mast3r")):
+        model.to(dev)
+        run = prep_flow.batch_runner(model, 0, dev, cache)[0]
+        a, b = (torch.from_numpy(rng.uniform(0, 1, (1, *hw, 3)).astype(np.float32)).to(dev)
+                for _ in range(2))
+        with torch.inference_mode():
+            assert graph_vs_eager(lambda: run(a, b), checked=True, launched=()) == {name: 1}
+        n = len(cache.entries)
+        model.cpu().to(dev)
+        with torch.inference_mode():
+            run(a, b)
+        assert len(cache.entries) == n + 1
+
+
+def test_graphed_batched_step_equals_eager(dev):
+    """sharded_train_step's step over a (2 data x 2 tile) mesh on this card,
+    recorded under sync_check("error"), called twice: equal to eager, the
+    band kernels launched as eagerly."""
+    from gflow_tpu_torch.parallel.mesh import make_mesh
+    from gflow_tpu_torch.parallel.multichip import sharded_train_step, step_inputs
+
+    mesh = make_mesh(4, data_parallel=2, device=[torch.device("cuda", 0)] * 4)
+    cfg, dyn, (p, o, st, tg, intr) = step_inputs(mesh)
+    step = sharded_train_step(mesh, cfg, dyn)[0]
+
+    def two_steps():
+        q, r = p, o
+        outs = []
+        for _ in range(2):
+            q, r, loss, rgb = step(q, r, st, tg, intr)
+            outs += [q, r.m, r.v, loss, rgb]
+        return outs
+
+    assert graph_vs_eager(two_steps, checked=True) == {"train_step": 2}
+
+
+def test_graphed_replicas_over_two_cards(dev):
+    """sharded_batch_apply with a graph cache over two cards: one graph per
+    replica on its own card, equal to the eager replicas."""
+    from gflow_tpu_torch.opt.graphs import ForwardCache
+    from gflow_tpu_torch.parallel.mesh import make_mesh, sharded_batch_apply
+
+    c0, c1 = two_cards()
+    model = torch.nn.Conv2d(3, 5, 3, padding=1).to(c0).eval()
+    cache = ForwardCache("replica", 4)
+    run = sharded_batch_apply(model, make_mesh(2, data_parallel=2, device="cuda"), cache)
+    x = torch.randn(4, 3, 16, 12, device=c0)
+    with torch.inference_mode():
+        assert graph_vs_eager(lambda: run(x), checked=True, launched=()) == {"replica": 2}
+    assert sorted(str(k[3]) for k in cache.entries) == ["cuda:0", "cuda:1"]

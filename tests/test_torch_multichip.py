@@ -162,3 +162,37 @@ def test_banded_stage_graph_runner_equals_eager(inputs, camera_only, monkeypatch
     for a, b in zip((*eager[0], *eager[1]), (*graphed[0], *graphed[1])):
         assert torch.equal(a, b)
     assert torch.equal(eager[2]["loss_trace"], graphed[2]["loss_trace"])
+
+
+def test_batched_step_graph_runner_equals_eager(monkeypatch):
+    """sharded_train_step's step over a (2 data x 2 tile) mesh of CPU
+    devices through the graph runner (test_torch_stage_graph's fake
+    capture), called twice, each result fed to the next call, against the
+    same two steps eager: every output equal; one capture spanning the
+    mesh's devices, a replay per call."""
+    from gflow_tpu_torch.opt import graphs
+    from gflow_tpu_torch.parallel.multichip import sharded_train_step, step_inputs
+    from test_torch_stage_graph import FakeGraph
+
+    mesh = make_mesh(4, data_parallel=2, device="cpu")
+    cfg, dyn, (bparams, bopt, bstate, btargets, intr) = step_inputs(mesh)
+
+    def two_steps(step):
+        p, o = bparams, bopt
+        outs = []
+        for _ in range(2):
+            p, o, loss, rgb = step(p, o, bstate, btargets, intr)
+            outs += [*p, *o.m, *o.v, o.step, loss, rgb]
+        return outs
+
+    eager = two_steps(sharded_train_step(mesh, cfg, dyn)[0])
+    monkeypatch.setattr(graphs, "graphed", lambda dev: True)
+    cache = graphs.ForwardCache("train_step", 4, capture=FakeGraph)
+    FakeGraph.captures = 0
+    graphs.REPLAYS.clear()
+    graphed = two_steps(sharded_train_step(mesh, cfg, dyn, graphs=cache)[0])
+    assert FakeGraph.captures == 1 and graphs.REPLAYS == {"train_step": 2}
+    (entry,) = cache.entries.values()
+    assert entry.devices == mesh.flat
+    assert all(torch.equal(a, b) for a, b in zip(eager, graphed))
+    assert not torch.equal(graphed[0], bparams.xyz)

@@ -18,9 +18,10 @@ eigenproblems take the eigenvector of the smallest eigenvalue
 (``smallest_eigvec``): the null vector of A^T A (9 x 9), and v of F^T F
 (3 x 3), for F's rank-2 projection F (I - v v^T) = U diag(s1, s2, 0) V^T.
 On CUDA tensors that is the hand-written kernel ``csrc/small_eig.cu``
-(cyclic Jacobi, one thread per matrix): ``torch.linalg.eigh`` and ``svd``
-read their status back to the host, which a capture refuses. CPU tensors
-take its plain version, ``torch.linalg.eigh``.
+(cyclic Jacobi: one warp per matrix at n >= 5, the disjoint rotations of
+a round at once; one thread per matrix below): ``torch.linalg.eigh`` and
+``svd`` read their status back to the host, which a capture refuses. CPU
+tensors take its plain version, ``torch.linalg.eigh``.
 """
 from __future__ import annotations
 

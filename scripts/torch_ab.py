@@ -1,8 +1,9 @@
 """What the A/B scripts (scripts/torch_compositor_ab.py,
-scripts/torch_binning_ab.py) share: one source of `gflow_tpu_torch/csrc`,
-from this checkout or another, built with this checkout's nvcc flags and
-bound through its C entry points; the order of the turns; the card's name
-and power limit; the rows written to chiprun_out/<name>.json.
+scripts/torch_binning_ab.py, scripts/torch_small_eig_ab.py) share: one
+source of `gflow_tpu_torch/csrc`, from this checkout or another, built with
+this checkout's nvcc flags and bound through its C entry points; the
+order of the turns; the card's name and power limit; the rows written to
+chiprun_out/<name>.json.
 
 Importing it puts the repo's root on sys.path, so that a script can then
 import chip_smoke and gflow_tpu_torch.
@@ -32,15 +33,18 @@ def card() -> str:
                           check=True).stdout.strip().splitlines()[0]
 
 
-def build(checkout: Path, source: str, tag: str) -> ctypes.CDLL:
-    """`gflow_tpu_torch/csrc/<source>` of `checkout`, compiled and loaded."""
+def build(checkout: Path, source: str, tag: str, extra=()) -> ctypes.CDLL:
+    """`gflow_tpu_torch/csrc/<source>` of `checkout`, compiled (with the
+    nvcc flags `extra` added) and loaded; the compiler's output goes to
+    `_build.BUILD_LOGS["<stem>-<tag>"]`."""
     src = checkout / "gflow_tpu_torch" / "csrc" / source
     out = _build.BUILD_DIR / "ab" / f"{Path(source).stem}-{tag}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src)],
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, *extra, "-o", str(out), str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
+    _build.BUILD_LOGS[f"{Path(source).stem}-{tag}"] = proc.stdout + proc.stderr
     return ctypes.CDLL(str(out))
 
 

@@ -14,8 +14,12 @@ preparation's compiled paths (the alignment's Adam steps, the GMFlow and
 MASt3R forwards, the LMedS, the B-frame step) run as CUDA graphs equal the
 same calls eager exactly, deterministic algorithms on; a banded stage
 equals the unbanded one to 1e-6. small_eig (the LMedS's eigensolver)
-against torch.linalg.eigh on separated spectra: residual |A v - l v| /
-|A| <= 1e-5 and |v . v_eigh| >= 1 - 1e-5."""
+against torch.linalg.eigh on separated spectra, n = 1..9 and batches of
+1, 33 and 512: residual |A v - l v| / |A| <= 1e-5 and |v . v_eigh| >=
+1 - 1e-5; a twice-repeated smallest eigenvalue: the residual, and v in
+its eigenspace to 1 - 1e-5; the zero matrix and the identity: a finite
+unit vector; a matrix of NaNs leaves the rest of its batch exactly as
+without it."""
 import contextlib
 
 import numpy as np
@@ -876,27 +880,79 @@ def separated_symmetric(n, batch, seed=0):
     rng = np.random.default_rng(seed)
     Q = np.linalg.qr(rng.normal(size=(batch, n, n)))[0]
     lam = np.sort(rng.uniform(-1, 1, (batch, n)), axis=1)
-    lam[:, 0] = lam[:, 1] - 0.1 - rng.uniform(0, 0.5, batch)
+    if n > 1:
+        lam[:, 0] = lam[:, 1] - 0.1 - rng.uniform(0, 0.5, batch)
     return torch.from_numpy(((Q * lam[:, None, :]) @ Q.transpose(0, 2, 1)).astype(np.float32))
 
 
-@pytest.mark.parametrize("n", [3, 9])
-def test_small_eig_matches_plain(dev, n):
-    """512 matrices: the kernel's eigenvector has a residual |A v - l v| /
-    |A| <= 1e-5 (l = v^T A v) and agrees with eigh's up to sign; one
-    launch."""
+def eig_residual(v, A):
+    """|A v - l v| / |A| per matrix, l = v^T A v."""
+    lam = torch.einsum("bi,bij,bj->b", v, A, v)
+    return torch.linalg.vector_norm(A @ v[..., None] - lam[:, None, None] * v[..., None],
+                                    dim=(1, 2)) / torch.linalg.matrix_norm(A)
+
+
+@pytest.mark.parametrize("batch", [1, 33, 512])
+@pytest.mark.parametrize("n", range(1, 10))
+def test_small_eig_matches_plain(dev, n, batch):
+    """The kernel's eigenvector has a residual |A v - l v| / |A| <= 1e-5
+    (l = v^T A v) and agrees with eigh's up to sign; one launch. n < 5 runs
+    one thread per matrix, n >= 5 one warp per matrix."""
     from gflow_tpu_torch.ops import epipolar
 
-    A = separated_symmetric(n, 512).to(dev)
+    A = separated_symmetric(n, batch).to(dev)
     _build.LAUNCHES.clear()
     v = epipolar.small_eig(A)
     torch.cuda.synchronize()
     assert _build.LAUNCHES == {"small_eig": 1}
-    lam = torch.einsum("bi,bij,bj->b", v, A, v)
-    res = torch.linalg.vector_norm(A @ v[..., None] - lam[:, None, None] * v[..., None],
-                                   dim=(1, 2)) / torch.linalg.matrix_norm(A)
+    res = eig_residual(v, A)
     dot = (v * epipolar.smallest_eigvec_plain(A)).sum(-1).abs()
     assert float(res.max()) <= 1e-5 and float(dot.min()) >= 1 - 1e-5, (res.max(), dot.min())
+
+
+@pytest.mark.parametrize("n", [3, 9])
+def test_small_eig_repeated_smallest_eigenvalue(dev, n):
+    """The smallest eigenvalue twice: the residual is held and v lies in its
+    eigenspace (|P v| >= 1 - 1e-5, P the projection onto it)."""
+    from gflow_tpu_torch.ops import epipolar
+
+    rng = np.random.default_rng(3)
+    Q = np.linalg.qr(rng.normal(size=(64, n, n)))[0]
+    lam = np.sort(rng.uniform(-1, 1, (64, n)), axis=1)
+    lam[:, 2:] = np.maximum(lam[:, 2:], lam[:, :1] + 0.2)
+    lam[:, 1] = lam[:, 0]
+    A = torch.from_numpy(((Q * lam[:, None, :]) @ Q.transpose(0, 2, 1)).astype(np.float32))
+    v = epipolar.small_eig(A.to(dev)).cpu().double()
+    assert float(eig_residual(v, A.double()).max()) <= 1e-5
+    inside = torch.linalg.vector_norm(torch.einsum("bij,bi->bj", torch.from_numpy(Q[:, :, :2]), v),
+                                      dim=-1)
+    assert float(inside.min()) >= 1 - 1e-5, inside.min()
+
+
+@pytest.mark.parametrize("n", [3, 9])
+def test_small_eig_zero_and_identity(dev, n):
+    """The zero matrix and the identity (every rotation skipped): a finite
+    unit vector."""
+    from gflow_tpu_torch.ops import epipolar
+
+    A = torch.stack([torch.zeros(n, n), torch.eye(n)]).to(dev)
+    v = epipolar.small_eig(A)
+    assert bool(torch.isfinite(v).all())
+    torch.testing.assert_close(torch.linalg.vector_norm(v, dim=-1), torch.ones(2, device=dev))
+
+
+@pytest.mark.parametrize("n", [3, 9])
+def test_small_eig_nan_matrix_leaves_the_batch(dev, n):
+    """One matrix of NaNs in a batch of 33: the kernel returns, and every
+    other matrix's eigenvector equals that of the batch without it."""
+    from gflow_tpu_torch.ops import epipolar
+
+    A = separated_symmetric(n, 33, seed=4).to(dev)
+    A[7] = float("nan")
+    v = epipolar.small_eig(A)
+    torch.cuda.synchronize()
+    keep = [i for i in range(33) if i != 7]
+    assert torch.equal(v[keep], epipolar.small_eig(A[keep]))
 
 
 def test_graphed_lmeds_equals_eager_under_sync_check(dev):

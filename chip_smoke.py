@@ -28,7 +28,10 @@
    scripts/torch_stage_spread.py); then holds those stages, a
    rebin_every=4 and a snapshot_every=5 stage as graphs against the same
    stages eager (opt.graphs.disable_graphs): 0 apart, the same launch
-   counts;
+   counts; and a full stage with stamps (ops/stamp.py, what a trainer
+   with telemetry runs) against the same stage without, as CUDA graphs:
+   0 apart, the stamp kernel 5 times an iteration and every other kernel
+   as often, every piece of every iteration positive;
 5. drives the port's fit_video (gflow_tpu_torch.pipeline.fit_video.main)
    on a synthetic 4-frame sequence at 854x480 (tests/synth.py's static
    camera layout, JPEG frames, 3 frames fitted) with 50,000 points, the
@@ -36,7 +39,8 @@
    just before and read just after: frame 0 on the snapshot path, then per
    frame a camera-only stage and a full stage with its occ densify and
    one error densify; depth cut to FIT's iterations. Checks every kernel
-   launched, the log directory (checkpoint schema, videos, pickles), the
+   launched (the stamp kernel 5 times an iteration: fit_video's trainer
+   has telemetry), the log directory (checkpoint schema, videos, pickles), the
    final PSNR and the move segmentation; renders the final checkpoint
    (render_scene) and the trajectory line set through the kernels and
    through the plain versions, and the checkpoint loaded into a trainer;
@@ -98,7 +102,8 @@
 10. prints the kernels JSON line (with each kernel's launches in the main
    path, in fit_video, in the eval, in the viewer, in prep and in the
    multi-GPU phase's banded stages; small_eig's, the prep path's own
-   kernel, with its launches in prep), then as its last line
+   kernel, with its launches in prep; stamp's, with its launches in the
+   stamped stage and in fit_video), then as its last line
    {"ok": true, "device": {...}}.
 
 The prep phase (between 7 and 8) prepares a second 4-frame sequence's
@@ -1114,7 +1119,7 @@ def _main_path(scene):
     log(f"# render {sorted(out)} matches plain path (atol 5e-4, rtol 1e-3)")
     drift_check(scene)
     graph_holds(scene, (traces, alive, p, launches))
-    return launches, replayed
+    return launches, replayed, stamp_hold(scene)
 
 
 def flat_stage(p, s, info):
@@ -1181,6 +1186,54 @@ def graph_holds(scene, graphed_check):
         f"launches, equal in both: {json.dumps(counts)}")
     assert not any(diff.values()), diff
     return {"max_abs_diff": diff, "launches": counts}
+
+
+def stamp_hold(scene, iters=20):
+    """A full stage at the main path's width and capacity (20 iterations,
+    an occ densify at 0 and an error densify after iteration 9) with
+    stamps (what a trainer with telemetry runs: fit_video's) and without,
+    as CUDA graphs, from the same inputs, deterministic (called from
+    main_path): the loss traces and parameters 0 apart, the stamp kernel
+    launched 5 times an iteration and every other kernel as often as
+    without, and every piece of every iteration positive on the card's
+    timer. Returns the launches and each piece's ms per iteration."""
+    from gflow_tpu_torch.ops import _build
+    from gflow_tpu_torch.ops.stamp import COLS, pieces
+    from gflow_tpu_torch.opt.state import init_frame_state
+    from gflow_tpu_torch.opt.train import StageConfig, train_stage
+
+    img, depth, intr, params, n0, rcfg = scene
+    tg = check_targets(img, depth)
+    dyn_full = dynamics()[1]
+    runs = {}
+    for stamps in (True, False):
+        cfg = StageConfig(W=W, H=H, iterations=iters, render=rcfg, densify_occ=True,
+                          densify_interval=10, densify_times=1, max_densify=256,
+                          stamps=stamps)
+        state = init_frame_state(CAPACITY)._replace(
+            n_alive=torch.tensor(n0, dtype=torch.int32, device="cuda"))
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        _build.LAUNCHES.clear()
+        p, _, info = train_stage(params, state, tg, intr, gen, cfg, dyn_full)
+        torch.cuda.synchronize()
+        runs[stamps] = (p, info, dict(_build.LAUNCHES))
+    (p, info, launches), (p0, info0, launches0) = runs[True], runs[False]
+    table = info["stamps"].cpu().numpy()
+    diff = max(float((info["loss_trace"] - info0["loss_trace"]).abs().max()),
+               max(float((getattr(p, k) - getattr(p0, k)).abs().max()) for k in p._fields))
+    got = pieces(table)
+    ms = {k: 1e3 * v / (iters - 1 if k == "between" else iters) for k, v in got.items()}
+    out = {"launches": launches, "unstamped_launches": launches0, "ms_per_iter": ms,
+           "max_abs_diff": diff, "n_alive": int(info["n_alive"])}
+    log(f"# stamped full stage ({iters} iterations, densify) vs unstamped, CUDA graphs "
+        f"(deterministic): {json.dumps(out)}")
+    assert table.shape == (iters, COLS) and "stamps" not in info0
+    assert diff == 0 and int(info["n_alive"]) == int(info0["n_alive"]), out
+    stamped = dict(launches)
+    assert stamped.pop("stamp", 0) == COLS * iters and stamped == launches0, out
+    assert (np.diff(table, axis=1) > 0).all() and (table[1:, 0] >= table[:-1, -1]).all(), table
+    assert all(v > 0 for v in got.values()), got
+    return out
 
 
 def time_frame(scene):
@@ -1526,6 +1579,7 @@ def fit_video_phase(scene):
 
     from gflow_tpu_torch.ops import _build
     from gflow_tpu_torch.ops.render import render_scene
+    from gflow_tpu_torch.ops.stamp import COLS
     from gflow_tpu_torch.pipeline.trainer import GFlowTrainer
     from gflow_tpu_torch.utils.hull import native_loaded
 
@@ -1559,6 +1613,10 @@ def fit_video_phase(scene):
         f"{summary['frames']} frames, {summary['opt_steps_per_sec']} steps/s, wall "
         f"{wall:.2f} s; phase medians (s): {json.dumps(medians)}")
     log(f"# fit_video telemetry summary: {json.dumps(summary)}")
+    # the trainer has telemetry, so every stage stamped its iterations
+    iters = summary["phases"]["iter/render"]["calls"]
+    log(f"# fit_video stamps: {launches.get('stamp')} launches over {iters} iterations")
+    assert launches.get("stamp") == COLS * iters, (launches.get("stamp"), iters)
 
     # the final checkpoint, as a saved scene, through the kernels and through
     # the plain versions; then loaded into a trainer, which renders the same
@@ -2203,20 +2261,25 @@ def prep_depth_phase(seq):
     n_params = sum(v.numel() for v in sd.values())
     pair_s, align, align_args = [], {}, {}
 
-    def aligned(*args, **kw):
+    def set_up(*args, **kw):  # prep_depth calls global_align's steps
         align_args["global_align"] = (args, kw)
-        res = orig_align(*args, **kw, collect_timings=True)
-        align.update(res["timings"])
+        return orig_setup(*args, **kw)
+
+    def refine_poses(setup, *args, **kw):
+        res = orig_refine_poses(setup, *args, **kw, collect_timings=True)
+        align.update(setup.timings)
         return res
 
     def refine(*args):
         align_args.setdefault("_refine", args)  # the first stage's
         return orig_refine(*args)
 
-    orig_align, orig_refine = prep_depth.global_align, alignment._refine
+    orig_setup, orig_refine_poses = alignment.align_setup, alignment.refine_poses
+    orig_refine = alignment._refine
     t0 = time.perf_counter()
     with timed_calls(stage_graphs, "module_call", pair_s), \
-            mock.patch.object(prep_depth, "global_align", aligned), \
+            mock.patch.object(alignment, "align_setup", set_up), \
+            mock.patch.object(alignment, "refine_poses", refine_poses), \
             mock.patch.object(alignment, "_refine", refine):
         prep_depth.main(seq, inference_size=MAST3R_SIZE, model=model)
     wall = time.perf_counter() - t0
@@ -2591,12 +2654,14 @@ def prep_turns(seq, flow_sd, mast3r):
     mesh on card_list(4)."""
     import shutil
 
+    from gflow_tpu_torch.models.mast3r import alignment
     from gflow_tpu_torch.models.unimatch import GMFlow, GMFlowConfig
     from gflow_tpu_torch.opt import graphs as stage_graphs
     from gflow_tpu_torch.parallel.mesh import make_mesh
     from gflow_tpu_torch.parallel.multichip import sharded_train_step, step_inputs
     from gflow_tpu_torch.pipeline import prep_depth, prep_flow, prep_moveseg
 
+    refine_poses = alignment.refine_poses
     gmflow = meta_model(GMFlow, GMFlowConfig(), flow_sd, "cuda")
     mesh = make_mesh(4, data_parallel=2, device=list(card_list(4)))
     cfg, dyn, step_args = step_inputs(mesh, W=W, H=H, capacity=CAPACITY, max_per_tile=96,
@@ -2608,11 +2673,10 @@ def prep_turns(seq, flow_sd, mast3r):
     def run(mode):
         d = copy_frames(seq, os.path.join(root, f"{next(runs)}_{mode}", "seq"), 4)
         pairs, frames, lmeds, align = [], [], [], {}
-        aligned = prep_depth.global_align
 
-        def timed_align(*a, **kw):
-            res = aligned(*a, **kw, collect_timings=True)
-            align.update(res["timings"])
+        def timed_refine(setup, *a, **kw):
+            res = refine_poses(setup, *a, **kw, collect_timings=True)
+            align.update(setup.timings)
             return res
 
         walls = {}
@@ -2620,7 +2684,7 @@ def prep_turns(seq, flow_sd, mast3r):
                 timed_calls(stage_graphs, "module_call", pairs), \
                 timed_calls(prep_moveseg, "epipolar_error_map", frames), \
                 timed_calls(prep_moveseg, "find_fundamental_lmeds", lmeds), \
-                mock.patch.object(prep_depth, "global_align", timed_align):
+                mock.patch.object(alignment, "refine_poses", timed_refine):
             for name, call in (("prep_flow", lambda: prep_flow.main(d, model=gmflow)),
                                ("prep_moveseg", lambda: prep_moveseg.main(d)),
                                ("prep_depth", lambda: prep_depth.main(
@@ -3232,7 +3296,7 @@ def main():
     scene = bench_scene()
     inputs = timed("main path inputs", main_path_inputs, scene)
     rows = timed("kernels", kernel_phase, inputs)
-    launches, replayed = timed("main path", main_path, scene)
+    launches, replayed, stamps = timed("main path", main_path, scene)
     fit = timed("fit_video", fit_video_phase, scene)
     ev = timed("eval", eval_phase, fit)
     viewer = timed("viewer", viewer_phase, fit)
@@ -3315,6 +3379,20 @@ def main():
             "batch", "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err", "residual",
             "ptxas")} for w, x in eig.items() if w not in ("synthetic 9x9", "lmeds")},
         "lmeds_vs_plain": eig["lmeds"]})
+    # the stage's timestamps, launched where a trainer has telemetry
+    # (fit_video's): 5 a stamped iteration (stamp_hold)
+    kernels.append({
+        "name": "stamp", "route": "cuda", "source": "gflow_tpu_torch/csrc/stamp.cu",
+        "replaces": None, "pallas_counterpart": None,
+        "note": "no Pallas kernel: times the pieces of a graphed iteration on the card's timer",
+        "launches": stamps["launches"]["stamp"],
+        "main_path_launches": launches.get("stamp", 0),
+        "fit_video_launches": fit["launches"].get("stamp", 0),
+        "eval_launches": ev["launches"].get("stamp", 0),
+        "viewer_launches": viewer["launches"].get("stamp", 0),
+        "prep_launches": prep["launches"].get("stamp", 0),
+        "multigpu_launches": multi["launches"].get("stamp", 0),
+        "ms_per_iter": stamps["ms_per_iter"]})
     log(f"# chip_smoke wall time {time.perf_counter() - t_start:.1f} s; by phase (s) "
         f"{json.dumps(phase_s)}")
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,13 @@
 """CLI: python -m gflow_tpu_torch.cli.prep_flow --img-dir <seq> --checkpoint <pth|npz>
-(the flags of gflow_tpu.cli.prep_flow; --device cpu runs on the CPU)."""
+(the flags of gflow_tpu.cli.prep_flow; --device cpu runs on the CPU).
+The stage's phases (``utils.profiling.current``) are written to
+<seq>_flow_unimatch/telemetry.json."""
+import os
+
 from ..pipeline.prep_flow import main
 from ..utils.cli import run_cli
+from ..utils.profiling import current
 
 if __name__ == "__main__":
-    run_cli(main, prog="prep_flow")
+    out_dir = run_cli(main, prog="prep_flow")
+    current().dump(os.path.join(out_dir, "telemetry.json"))

@@ -29,6 +29,7 @@ from __future__ import annotations
 import contextlib
 import math
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -238,6 +239,19 @@ def _refine(pose_params, log_scales, ei, ej, src, dst, cw, lr: float, t_scale: f
     return buf.poses.clone(), buf.scales.clone(), loss.clone()
 
 
+class AlignSetup(NamedTuple):
+    """align_setup's result: the canonical pointmaps (NumPy), the refined
+    leaves' initial values and the edge samples on the device, the
+    translation step unit, the image size and the timings so far."""
+    canon: list
+    pose_params: torch.Tensor
+    log_scales: torch.Tensor
+    edges: tuple
+    t_scale: float
+    image_hw: tuple
+    timings: dict
+
+
 def global_align(
     edge_preds: dict,
     n_frames: int,
@@ -259,10 +273,50 @@ def global_align(
 
     Returns a dict with poses_c2w (T, 4, 4), depths (T, H, W), focal, pp
     and final_loss; collect_timings adds "timings": the host assembly's
-    seconds, each refinement stage's seconds and its ms per Adam step."""
+    seconds, each refinement stage's seconds and its ms per Adam step.
+
+    Its three steps, align_setup (the host's NumPy set-up), refine_poses
+    (the refinement and its result's pull to the host) and align_outputs
+    (the host's outputs), are callable apart, for a caller that times
+    each."""
+    setup = align_setup(edge_preds, n_frames, image_hw, n_sample, seed, device)
+    out = align_outputs(setup, *refine_poses(setup, lr1, steps1, lr2, steps2,
+                                             collect_timings))
+    if collect_timings:
+        out["timings"] = setup.timings
+    return out
+
+
+def refine_poses(setup: AlignSetup, lr1: float = 0.07, steps1: int = 500, lr2: float = 0.014,
+                 steps2: int = 200, collect_timings: bool = False):
+    """The two Adam stages of the refinement from `setup`, then their
+    result pulled to the host (which waits for the card): (pose_params,
+    log_scales) as NumPy arrays and the final loss. collect_timings
+    waits for each stage's last step and writes its seconds and the ms per
+    step into setup.timings."""
+    pose_params, log_scales = setup.pose_params, setup.log_scales
+    stage_secs = []
+    for lr, steps in ((lr1, steps1), (lr2, steps2)):
+        t0 = time.perf_counter()
+        lr = float(np.float32(lr))
+        pose_params, log_scales, final_loss = _refine(pose_params, log_scales, *setup.edges,
+                                                      lr, setup.t_scale, steps)
+        if collect_timings:
+            final_loss.item()  # waits for the stage's last step
+            stage_secs.append(time.perf_counter() - t0)
+    if collect_timings:
+        setup.timings["refine_stage_secs"] = stage_secs
+        setup.timings["ms_per_step"] = 1e3 * sum(stage_secs) / max(steps1 + steps2, 1)
+    return pose_params.cpu().numpy(), log_scales.cpu().numpy(), float(final_loss)
+
+
+def align_setup(edge_preds: dict, n_frames: int, image_hw: tuple[int, int],
+                n_sample: int = 1024, seed: int = 0, device=None) -> AlignSetup:
+    """global_align's host assembly: the canonical pointmaps, the chained
+    initial poses and scales, the edge samples and the translation step
+    unit, on the device."""
     dev = resolve_device(device)
     t_start = time.perf_counter()
-    timings = {}
     rng = np.random.default_rng(seed)
     H, W = image_hw
     pairs = sorted(edge_preds.keys())
@@ -344,25 +398,18 @@ def global_align(
     pose_params = as_t(np.concatenate([quats, trans], axis=1))
     log_scales = as_t(scales)
     edge = (as_t(ei, torch.int64), as_t(ej, torch.int64), as_t(src), as_t(dst), as_t(cw))
-    if collect_timings:
-        timings["host_assembly_sec"] = time.perf_counter() - t_start
-    stage_secs = []
-    final_loss = None
-    for lr, steps in ((lr1, steps1), (lr2, steps2)):
-        t0 = time.perf_counter()
-        lr = float(np.float32(lr))
-        pose_params, log_scales, final_loss = _refine(pose_params, log_scales, *edge,
-                                                      lr, t_scale, steps)
-        if collect_timings:
-            final_loss.item()  # waits for the stage's last step
-            stage_secs.append(time.perf_counter() - t0)
-    if collect_timings:
-        timings["refine_stage_secs"] = stage_secs
-        timings["ms_per_step"] = 1e3 * sum(stage_secs) / max(steps1 + steps2, 1)
+    return AlignSetup(canon, pose_params, log_scales, edge, t_scale, image_hw,
+                      {"host_assembly_sec": time.perf_counter() - t_start})
 
-    # outputs
-    pose_params = pose_params.cpu().numpy()
-    log_scales = log_scales.cpu().numpy()
+
+def align_outputs(setup: AlignSetup, pose_params, log_scales, final_loss: float) -> dict:
+    """global_align's outputs from refine_poses' refined poses and
+    log-scales (NumPy): cam2world matrices, scaled depths, focal and pp."""
+    from scipy.spatial.transform import Rotation as _R
+
+    canon = setup.canon
+    H, W = setup.image_hw
+    n_frames = len(canon)
     poses_c2w = []
     for f in range(n_frames):
         q = pose_params[f, :4]
@@ -376,13 +423,10 @@ def global_align(
     depths = np.stack([canon[f][..., 2] * np.exp(log_scales[f]) for f in range(n_frames)])
     pp = (W / 2.0, H / 2.0)
     focals = [estimate_focal(canon[f], pp) for f in range(n_frames)]
-    out = {
+    return {
         "poses_c2w": poses_c2w,
         "depths": depths.astype(np.float32),
         "focal": float(np.median(focals)),
         "pp": pp,
-        "final_loss": float(final_loss),
+        "final_loss": final_loss,
     }
-    if collect_timings:
-        out["timings"] = timings
-    return out

@@ -48,6 +48,7 @@ KERNELS = {
                       (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I)),
     "bin_tail": ("pack.cu", "gflow_bin_tail", (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I)),
     "small_eig": ("small_eig.cu", "gflow_small_eig", (_P, _P, _I, _I)),
+    "stamp": ("stamp.cu", "gflow_stamp", (_P, _P, _I, _I, _I)),
 }
 
 # launches per kernel name since the last reset (``LAUNCHES.clear()``):

@@ -29,6 +29,13 @@ Three variants, as in the JAX package:
   snapshot of the last forward's rgb and turbo depth and of the updated
   parameters' center view; no final forward, so the stage's outputs come
   from the last in-loop forward.
+
+With ``cfg.stamps`` every iteration also stamps the boundaries of its
+pieces into ``_StageBuffers.stamps`` (``ops/stamp.py``: the card's timer
+on CUDA, recorded into the iteration's graph and replayed with it; the
+host's clock on the CPU), so that the render, the losses, the backward
+and the update can be timed inside a graph replay. In the tile-band mode
+the stamps mark the home card's stream only.
 """
 from __future__ import annotations
 
@@ -46,6 +53,7 @@ from ..ops.binning import TileBins, tile_grid
 from ..ops.projection import TILE, project_gaussians, supported_max_radius
 from ..ops.render import (DEFAULT_CONFIG, RenderConfig, bin_with, composite,
                           composite_with_coverage, render)
+from ..ops.stamp import COLS as STAMP_COLS, stamp
 from ..viz.colormap import apply_float_colormap
 from . import graphs as stage_graphs
 from .graphs import copy_into, tree_map
@@ -70,6 +78,7 @@ class StageConfig:
     snapshot_every: int = 0          # >0: the snapshot path (module docstring)
     telemetry_t_final: bool = False  # residual-transmittance stats on the final forward
     rebin_every: int = 1             # >1: amortized rebinning (module docstring)
+    stamps: bool = False             # stamp each iteration's pieces (module docstring)
 
 
 class StageDynamics(NamedTuple):
@@ -106,9 +115,11 @@ def _compute_bins(params: Params, n_alive, intr, cfg: StageConfig):
 
 def _forward(params: Params, n_alive, state: FrameState, targets: Targets, intr,
              weights: LossWeights, cfg: StageConfig, flow_prior=None,
-             diag_t_final: bool = False, bins=None):
+             diag_t_final: bool = False, bins=None, mark=None):
     """Render + losses. Returns (total, aux). bins: tile lists carried by
-    the rebinning loop; None bins this forward's own projection.
+    the rebinning loop; None bins this forward's own projection. mark:
+    mark(col) stamps the iteration's column col (``_iteration``) after
+    the compositing (1) and at the forward's end (2).
 
     diag_t_final: append a ones feature channel whose composited value is
     the per-pixel accumulated opacity sum(alpha_i * T_i); the residual
@@ -145,6 +156,8 @@ def _forward(params: Params, n_alive, state: FrameState, targets: Targets, intr,
     else:
         img = composite(cfg.render, bins.tile_lists, uv, conic, opacity, feats, cfg.bg,
                         cfg.W, cfg.H, n_tx, n_ty, tile_counts=bins.tile_counts)
+    if mark is not None:
+        mark(1)
     rendered_rgb = img[..., :3]
     rendered_depth = img[..., 3:4]
 
@@ -171,6 +184,8 @@ def _forward(params: Params, n_alive, state: FrameState, targets: Targets, intr,
             TILE, 1)[:cfg.H, :cfg.W]
         aux["t_final_overflow_mean"] = (t_final * overpix).sum() / overpix.sum().clamp_min(1)
         aux["t_final_overflow_max"] = torch.where(overpix, t_final, 0.0).max()
+    if mark is not None:
+        mark(2)
     return total, aux
 
 
@@ -286,12 +301,13 @@ class _StageBuffers:
     """Every tensor an iteration reads or writes, at addresses that stay put
     for a CUDA graph: what the loop carries (``CARRIED``: the parameters,
     Adam's moments and step, n_alive, the iteration counter ``it`` (1,)
-    int64, the loss trace and, when rebinning, the tile lists) and the
-    stage's inputs (frame state, targets, intrinsics, flow-prior terms, the
-    lr schedule). Every piece of the loop updates them in place, eager or
-    replayed."""
+    int64, the loss trace, when rebinning the tile lists, and with
+    ``cfg.stamps`` the stamp table (iterations, ``ops.stamp.COLS``) int64)
+    and the stage's inputs (frame state, targets, intrinsics, flow-prior
+    terms, the lr schedule). Every piece of the loop updates them in place,
+    eager or replayed."""
 
-    CARRIED = ("params", "opt", "n_alive", "it", "losses", "bins")
+    CARRIED = ("params", "opt", "n_alive", "it", "losses", "bins", "stamps")
 
     def __init__(self, **fields):
         self.__dict__.update(fields)
@@ -299,7 +315,8 @@ class _StageBuffers:
     @classmethod
     def of(cls, inputs: dict, cfg: StageConfig) -> "_StageBuffers":
         """Buffers holding copies of `inputs` (train_stage's), Adam's state
-        at zero and, when rebinning, tile lists to be filled at iteration 0."""
+        at zero, when rebinning tile lists to be filled at iteration 0, and
+        with ``cfg.stamps`` the stamp table."""
         dev = inputs["intr"].device
         bins = None
         if cfg.rebin_every > 1 and cfg.snapshot_every <= 0:
@@ -314,15 +331,18 @@ class _StageBuffers:
         return cls(**tree_map(torch.clone, inputs),
                    opt=tree_map(torch.clone, init_opt_state(inputs["params"])),
                    it=torch.zeros(1, dtype=torch.int64, device=dev),
-                   losses=torch.zeros(cfg.iterations, device=dev), bins=bins)
+                   losses=torch.zeros(cfg.iterations, device=dev), bins=bins,
+                   stamps=torch.zeros((cfg.iterations, STAMP_COLS), dtype=torch.int64,
+                                      device=dev) if cfg.stamps else None)
 
     def load(self, inputs: dict) -> None:
         """Start a stage on these buffers: the inputs copied in, Adam's
-        state, the counter and the trace at zero."""
+        state, the counter, the trace and the stamps at zero."""
         for k, v in inputs.items():
             copy_into(getattr(self, k), v)
-        for t in (*self.opt.m, *self.opt.v, self.opt.step, self.it, self.losses):
-            t.zero_()
+        for t in (*self.opt.m, *self.opt.v, self.opt.step, self.it, self.losses, self.stamps):
+            if t is not None:
+                t.zero_()
 
     def scratch(self) -> "_StageBuffers":
         """A copy whose carried tensors are clones (a graph's warm-up)."""
@@ -332,12 +352,22 @@ class _StageBuffers:
 
 def _iteration(buf: _StageBuffers, cfg: StageConfig, weights: LossWeights):
     """One iteration in place on `buf`: forward, gated gradients, Adam at
-    row buf.it of the schedule, the loss into the trace, buf.it + 1.
+    row buf.it of the schedule, the loss into the trace, buf.it + 1; with
+    stamps, row buf.it of the stamp table at the start, after the
+    compositing, after the losses, after the backward and at the end.
     Returns the forward's aux outputs, detached."""
+    mark = None
+    if buf.stamps is not None:
+        def mark(col):
+            stamp(buf.it, buf.stamps, col)
+
+        mark(0)
     leaves = [p.detach().requires_grad_() for p in buf.params]
     total, aux = _forward(Params(*leaves), buf.n_alive, buf.state, buf.targets, buf.intr,
-                          weights, cfg, flow_prior=buf.flow_prior, bins=buf.bins)
+                          weights, cfg, flow_prior=buf.flow_prior, bins=buf.bins, mark=mark)
     grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    if mark is not None:
+        mark(3)
     grads = Params(*(torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)))
     grads = _gate_grads(grads, buf.state, buf.n_alive, cfg.camera_only)
     lr = buf.lrs.index_select(0, buf.it)[0]
@@ -347,6 +377,8 @@ def _iteration(buf: _StageBuffers, cfg: StageConfig, weights: LossWeights):
     copy_into(buf.opt, opt)
     at_i = torch.arange(cfg.iterations, device=buf.it.device) == buf.it
     buf.losses.copy_(torch.where(at_i, total.detach(), buf.losses))
+    if mark is not None:
+        mark(4)
     buf.it += 1
     return tree_map(torch.Tensor.detach, aux)
 
@@ -403,9 +435,10 @@ def train_stage(params: Params, state: FrameState, targets: Targets, intr,
     loop runs as CUDA graphs kept in `graphs` (None: the process's
     ``opt.graphs.DEFAULT_CACHE``), over every card of the tile-band mode;
     eagerly on the CPU and inside ``opt.graphs.disable_graphs()``. Returns (params, state,
-    info); info["loss_trace"] holds every iteration's total loss and, on
-    the snapshot path, info["snapshots"] the uint8 stacks (n_chunks, H, W,
-    3) under "rgb", "depth_map" and "center"."""
+    info); info["loss_trace"] holds every iteration's total loss, on the
+    snapshot path info["snapshots"] the uint8 stacks (n_chunks, H, W, 3)
+    under "rgb", "depth_map" and "center", and with ``cfg.stamps``
+    info["stamps"] the stamp table (``ops.stamp.pieces`` reads it)."""
     dev = resolve_device(device)
     params, state, targets = _to(params, dev), _to(state, dev), _to(targets, dev)
     intr = torch.as_tensor(intr, dtype=torch.float32).to(dev)
@@ -506,4 +539,6 @@ def train_stage(params: Params, state: FrameState, targets: Targets, intr,
             info[k] = aux[k]
     if snaps is not None:
         info["snapshots"] = snaps
+    if buf.stamps is not None:
+        info["stamps"] = out(buf.stamps)
     return params, state, info

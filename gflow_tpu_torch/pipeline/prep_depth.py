@@ -24,6 +24,16 @@ tokens a view; 288 gives 512x288, 576 tokens, the size MASt3R's own
 loader picks at 512). The depth maps go back to exactly the frame's size,
 where the JAX module's short-side resize can miss it by a column (853 for
 854 at 288). CLI: ``python -m gflow_tpu_torch.cli.prep_depth``.
+
+``main`` records into the process's telemetry (``utils.profiling.current``)
+the phase ``prep_depth`` and, per chunk, its pieces ``prep_depth/load``
+(the frames read), ``prep_depth/pairs`` (the model's batches and each
+pair's pull to the host, which waits for the card), the alignment's
+``prep_depth/align_host`` (``models.mast3r.alignment.align_setup`` and
+``align_outputs``, the host's NumPy work) and ``prep_depth/align_refine``
+(``refine_poses``: the graphed refinement and its result's pull) and
+``prep_depth/write`` (the resize back to the frame's size, the ``.npy``,
+PNG and camera files).
 """
 from __future__ import annotations
 
@@ -35,8 +45,9 @@ import torch
 
 from .. import resolve_device
 from ..core.io import imwrite, load_image, resize_to, write_camera
-from ..models.mast3r import Mast3rModel, convert, global_align, make_pairs_logwin
+from ..models.mast3r import Mast3rModel, alignment, convert, make_pairs_logwin
 from ..opt import graphs
+from ..utils import profiling
 from ..viz.colormap import colormap_lookup, print_color
 from .prep_flow import batch_runner, list_frames
 
@@ -74,6 +85,14 @@ def main(img_dir: str, checkpoint: Optional[str] = None, inference_size: int = 5
          device: Optional[str] = None, model=None, params=None):
     """model (a Mast3rModel with its weights) or params (a released-key
     state dict) are injectable, as in the JAX package's tests."""
+    with profiling.current().phase("prep_depth"):
+        return _main(img_dir, checkpoint, inference_size, seg_size, winsize, mesh_devices,
+                     device, model, params)
+
+
+def _main(img_dir, checkpoint, inference_size, seg_size, winsize, mesh_devices, device,
+          model, params):
+    phase = profiling.current().phase
     if model is None:
         if params is None:
             params = load_weights(checkpoint)
@@ -98,14 +117,15 @@ def main(img_dir: str, checkpoint: Optional[str] = None, inference_size: int = 5
 
     for c0 in range(0, len(paths), seg_size):
         chunk = paths[c0: c0 + seg_size]
-        imgs = [torch.from_numpy(load_image(p, resize=inference_size)).to(dev)[None]
-                for p in chunk]
-        H, W = imgs[0].shape[1:3]
-        ratio = load_image(chunk[0]).shape[1] / W  # inference-to-original focal and pp
+        with phase("prep_depth/load"):
+            imgs = [torch.from_numpy(load_image(p, resize=inference_size)).to(dev)[None]
+                    for p in chunk]
+            H, W = imgs[0].shape[1:3]
+            ratio = load_image(chunk[0]).shape[1] / W  # inference-to-original focal and pp
 
         edge_preds = {}
         pairs = make_pairs_logwin(len(chunk), winsize)
-        with torch.inference_mode():
+        with torch.inference_mode(), phase("prep_depth/pairs"):
             for e0 in range(0, len(pairs), B):
                 batch = pairs[e0:e0 + B]
                 batch += batch[-1:] * (B - len(batch))  # pad the tail batch; dropped below
@@ -117,16 +137,22 @@ def main(img_dir: str, checkpoint: Optional[str] = None, inference_size: int = 5
                         {k: o[k][bi].cpu().numpy() for k in ("pts3d", "conf")} for o in (o1, o2))
                     print_color(f"[mast3r] pair ({c0 + i},{c0 + j}) done")
 
-        res = global_align(edge_preds, len(chunk), (H, W), device=dev)
-        for f, p in enumerate(chunk):
-            name = os.path.splitext(os.path.basename(p))[0]
-            d = resize_to(res["depths"][f], load_image(p).shape[:2])
-            np.save(os.path.join(depth_dir, f"{name}.npy"), d)
-            imwrite(os.path.join(depth_dir, f"{name}.png"), depth_png(d))
-            np.save(os.path.join(pts_dir, f"{name}.npy"), res["depths"][f])
-            write_camera(os.path.join(cam_dir, f"{name}.json"), focal=res["focal"] * ratio,
-                         pose_w2c_4x4=np.linalg.inv(res["poses_c2w"][f]),
-                         pp=(res["pp"][0] * ratio, res["pp"][1] * ratio))
-        print_color(f"[mast3r] chunk {c0}: focal {res['focal']:.1f}, "
-                    f"align loss {res['final_loss']:.5f}")
+        with phase("prep_depth/align_host"):
+            setup = alignment.align_setup(edge_preds, len(chunk), (H, W), device=dev)
+        with phase("prep_depth/align_refine"):
+            refined = alignment.refine_poses(setup)
+        with phase("prep_depth/align_host"):
+            res = alignment.align_outputs(setup, *refined)
+        with phase("prep_depth/write"):
+            for f, p in enumerate(chunk):
+                name = os.path.splitext(os.path.basename(p))[0]
+                d = resize_to(res["depths"][f], load_image(p).shape[:2])
+                np.save(os.path.join(depth_dir, f"{name}.npy"), d)
+                imwrite(os.path.join(depth_dir, f"{name}.png"), depth_png(d))
+                np.save(os.path.join(pts_dir, f"{name}.npy"), res["depths"][f])
+                write_camera(os.path.join(cam_dir, f"{name}.json"), focal=res["focal"] * ratio,
+                             pose_w2c_4x4=np.linalg.inv(res["poses_c2w"][f]),
+                             pp=(res["pp"][0] * ratio, res["pp"][1] * ratio))
+            print_color(f"[mast3r] chunk {c0}: focal {res['focal']:.1f}, "
+                        f"align loss {res['final_loss']:.5f}")
     return depth_dir

@@ -15,6 +15,12 @@ each forward replays a CUDA graph recorded once per model and input shape
 ``mesh_devices=N`` batches N directed pairs at a time, one on each of N
 devices (``parallel.sharded_batch_apply``, a graph per replica). CLI:
 ``python -m gflow_tpu_torch.cli.prep_flow``.
+
+``main`` records into the process's telemetry (``utils.profiling.current``)
+the phase ``prep_flow`` and its pieces ``prep_flow/load`` (the frames
+read), ``prep_flow/forward`` (the batched forwards enqueued),
+``prep_flow/check`` (a pair's consistency check and its pulls to the
+host, which wait for the card) and ``prep_flow/write`` (its files).
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from .. import resolve_device
 from ..core.io import imwrite, load_image, write_flow
 from ..models.unimatch import GMFlow, convert, forward_backward_consistency
 from ..opt import graphs
+from ..utils import profiling
 from ..viz.colormap import print_color
 
 CKPT_ENV = "GFLOW_UNIMATCH_WEIGHTS"
@@ -57,6 +64,13 @@ def main(img_dir: str, checkpoint: Optional[str] = None, resize: Optional[int] =
          model=None, params=None):
     """model (a GMFlow with its weights) or params (a released-key state
     dict) are injectable, as in the JAX package's tests."""
+    with profiling.current().phase("prep_flow"):
+        return _main(img_dir, checkpoint, resize, padding_factor, mesh_devices, device, model,
+                     params)
+
+
+def _main(img_dir, checkpoint, resize, padding_factor, mesh_devices, device, model, params):
+    phase = profiling.current().phase
     if model is None:
         if params is None:
             params = load_weights(checkpoint)
@@ -81,30 +95,34 @@ def main(img_dir: str, checkpoint: Optional[str] = None, resize: Optional[int] =
         return torch.from_numpy(padded).to(dev)[None], (H, W)
 
     with torch.inference_mode():
-        frames = [pad_to(load_image(p, resize=resize)) for p in paths]
+        with phase("prep_flow/load"):
+            frames = [pad_to(load_image(p, resize=resize)) for p in paths]
         # directed jobs (pair, direction): fwd and bwd of a pair are
         # independent inferences, batched B at a time across the mesh
         jobs = [(i, d) for i in range(len(paths) - 1) for d in (0, 1)]
         flows = {}
-        for c0 in range(0, len(jobs), B):
-            chunk = jobs[c0:c0 + B]
-            chunk += chunk[-1:] * (B - len(chunk))  # pad the tail batch; dropped below
-            a = torch.cat([frames[i + d][0] for i, d in chunk])
-            b = torch.cat([frames[i + 1 - d][0] for i, d in chunk])
-            out = run_batch(a, b)
-            for k, job in enumerate(jobs[c0:c0 + B]):
-                H, W = frames[job[0]][1]
-                flows[job] = out[k:k + 1, :H, :W]
+        with phase("prep_flow/forward"):
+            for c0 in range(0, len(jobs), B):
+                chunk = jobs[c0:c0 + B]
+                chunk += chunk[-1:] * (B - len(chunk))  # pad the tail batch; dropped below
+                a = torch.cat([frames[i + d][0] for i, d in chunk])
+                b = torch.cat([frames[i + 1 - d][0] for i, d in chunk])
+                out = run_batch(a, b)
+                for k, job in enumerate(jobs[c0:c0 + B]):
+                    H, W = frames[job[0]][1]
+                    flows[job] = out[k:k + 1, :H, :W]
         for i in range(len(paths) - 1):
-            fwd, bwd = flows[(i, 0)], flows[(i, 1)]
-            _, occ_b = forward_backward_consistency(fwd, bwd)
-            fwd, bwd = fwd[0].cpu().numpy(), bwd[0].cpu().numpy()
-            name = os.path.splitext(os.path.basename(paths[i]))[0]
-            write_flow(os.path.join(out_dir, f"{name}_pred.flo"), fwd)
-            write_flow(os.path.join(out_dir, f"{name}_pred_bwd.flo"), bwd)
-            imwrite(os.path.join(out_dir, f"{name}_occ_bwd.png"),
-                    (occ_b[0].cpu().numpy() * 255).astype(np.uint8))
-            print_color(f"[flow] {name}: |flow| mean {np.abs(fwd).mean():.2f}")
+            with phase("prep_flow/check"):
+                fwd, bwd = flows[(i, 0)], flows[(i, 1)]
+                _, occ_b = forward_backward_consistency(fwd, bwd)
+                fwd, bwd = fwd[0].cpu().numpy(), bwd[0].cpu().numpy()
+                occ = (occ_b[0].cpu().numpy() * 255).astype(np.uint8)
+            with phase("prep_flow/write"):
+                name = os.path.splitext(os.path.basename(paths[i]))[0]
+                write_flow(os.path.join(out_dir, f"{name}_pred.flo"), fwd)
+                write_flow(os.path.join(out_dir, f"{name}_pred_bwd.flo"), bwd)
+                imwrite(os.path.join(out_dir, f"{name}_occ_bwd.png"), occ)
+                print_color(f"[flow] {name}: |flow| mean {np.abs(fwd).mean():.2f}")
     return out_dir
 
 

@@ -9,6 +9,12 @@ thresholded into a moving-region mask, written with its open / erode /
 dilate variants (SciPy disks of radius 2, 5, 3 on the host) into
 ``<seq>_epipolar/``. Runs on ``cuda`` unless the caller passes
 ``device="cpu"``. CLI: ``python -m gflow_tpu_torch.cli.prep_moveseg``.
+
+``main`` records into the process's telemetry (``utils.profiling.current``)
+the phase ``prep_moveseg`` and, per pair, its pieces ``prep_moveseg/read``
+(the ``.flo`` read), ``prep_moveseg/lmeds`` (the error map, ending in its
+pull to the host, which waits for the card), ``prep_moveseg/morph`` (the
+threshold and SciPy's morphology) and ``prep_moveseg/write`` (four PNGs).
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import torch
 from .. import resolve_device
 from ..core.io import imwrite, read_flow
 from ..ops.epipolar import find_fundamental_lmeds, sampson_error
+from ..utils import profiling
 from ..viz.colormap import print_color
 from .prep_flow import list_frames
 
@@ -58,8 +65,14 @@ def epipolar_error_map(flow: np.ndarray, generator: torch.Generator | None = Non
 
 
 def main(img_dir: str, threshold: float = 0.01, device: Optional[str] = None):
+    with profiling.current().phase("prep_moveseg"):
+        return _main(img_dir, threshold, device)
+
+
+def _main(img_dir, threshold, device):
     from scipy.ndimage import binary_dilation, binary_erosion, binary_opening
 
+    phase = profiling.current().phase
     img_dir = str(img_dir)
     flow_dir = img_dir + "_flow_unimatch"
     epi_dir = img_dir + "_epipolar"
@@ -71,16 +84,21 @@ def main(img_dir: str, threshold: float = 0.01, device: Optional[str] = None):
         raise FileNotFoundError(f"no forward flows under {flow_dir}")
 
     for idx, fp in enumerate(fwd_paths):
-        err = epipolar_error_map(read_flow(fp), device=device)
-        mask = err > threshold
-        mask_open = binary_opening(mask, structure=_disk(2))
-        mask_erode = binary_erosion(mask, structure=_disk(5))
-        mask_dilate = binary_dilation(mask, structure=_disk(3))
-
-        name = os.path.splitext(os.path.basename(image_paths[idx]))[0]
-        imwrite(os.path.join(epi_dir, f"{name}_epipolar_error.png"), (err * 255).astype(np.uint8))
-        for tag, m in (("open", mask_open), ("erode", mask_erode), ("dilate", mask_dilate)):
-            imwrite(os.path.join(epi_dir, f"{name}_{tag}.png"), (m * 255).astype(np.uint8))
-        print_color(f"[move_seg] {name}: moving ratio "
-                    f"{mask.mean():.4f} -> open {mask_open.mean():.4f}")
+        with phase("prep_moveseg/read"):
+            flow = read_flow(fp)
+        with phase("prep_moveseg/lmeds"):
+            err = epipolar_error_map(flow, device=device)
+        with phase("prep_moveseg/morph"):
+            mask = err > threshold
+            mask_open = binary_opening(mask, structure=_disk(2))
+            mask_erode = binary_erosion(mask, structure=_disk(5))
+            mask_dilate = binary_dilation(mask, structure=_disk(3))
+        with phase("prep_moveseg/write"):
+            name = os.path.splitext(os.path.basename(image_paths[idx]))[0]
+            imwrite(os.path.join(epi_dir, f"{name}_epipolar_error.png"),
+                    (err * 255).astype(np.uint8))
+            for tag, m in (("open", mask_open), ("erode", mask_erode), ("dilate", mask_dilate)):
+                imwrite(os.path.join(epi_dir, f"{name}_{tag}.png"), (m * 255).astype(np.uint8))
+            print_color(f"[move_seg] {name}: moving ratio "
+                        f"{mask.mean():.4f} -> open {mask_open.mean():.4f}")
     return epi_dir

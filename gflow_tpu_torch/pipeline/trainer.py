@@ -44,12 +44,13 @@ from ..core.camera import default_intrinsics, extr_to_pose, pose_to_extr, world2
 from ..core.io import imwrite
 from ..core.scene import activate, activate_inv
 from ..ops.render import RenderConfig, quantize_u8, render, render_jit, render_traj
+from ..ops.stamp import pieces as stamp_pieces
 from ..opt.initialize import init_params_from_image
 from ..opt.graphs import ForwardCache, GraphCache
 from ..opt.losses import LossWeights
 from ..opt.state import Params, Targets, init_frame_state
 from ..opt.train import StageConfig, StageDynamics, train_stage
-from ..utils.bgwriter import flush_writes, get_writer
+from ..utils.bgwriter import flush_writes, get_writer, writer_busy_s
 from ..utils.hull import FastConcaveHull2D
 from ..viz.colormap import apply_float_colormap, print_color
 
@@ -376,6 +377,7 @@ class GFlowTrainer:
         frames/frames_center/frames_depth (the training snapshots, empty
         unless save_videos), still/move renders, move_seg, metrics."""
         has_last = self._last_num_host > 0
+        tel = self.telemetry
         cfg = StageConfig(
             W=self.W,
             H=self.H,
@@ -393,6 +395,8 @@ class GFlowTrainer:
             # residual-transmittance stats on full stages: they feed the
             # telemetry and the K-escalation guardrail below
             telemetry_t_final=not camera_only,
+            # the iteration's pieces stamped on the device, into the telemetry
+            stamps=tel is not None,
         )
         dyn = StageDynamics(
             lr=lr, lr_camera=lr_camera,
@@ -404,7 +408,6 @@ class GFlowTrainer:
             densify_err_percent=densify_err_percent,
         )
         targets = self._targets(move_mask=move_mask, occ_mask=mask)
-        tel = self.telemetry
         phase = tel.phase if tel is not None else (lambda name: contextlib.nullcontext())
 
         with phase("device/stage"):
@@ -423,7 +426,14 @@ class GFlowTrainer:
                             still_mask=self.state.still_mask)
             if "snapshots" in info:
                 pull["snapshots"] = info["snapshots"]
+            if "stamps" in info:
+                pull["stamps"] = info["stamps"]
             pulled = _host(pull)
+        if "stamps" in pulled:
+            # each piece's device seconds over the stage, in iterations
+            for piece, sec in stamp_pieces(pulled["stamps"]).items():
+                calls = cfg.iterations - 1 if piece == "between" else cfg.iterations
+                tel.add("iter/" + piece, sec, calls)
         self._last_info = info
         self.last_tile_overflow = float(pulled["tile_overflow"])
         if "t_final_mean" in pulled:
@@ -443,28 +453,39 @@ class GFlowTrainer:
             out["frames_depth"] = list(snaps["depth_map"])
 
         # ---- move segmentation via concave hull (trainer.py:604-609) ----
+        # (its pieces are named outside host/: fit.host_s_per_frame sums
+        # the host/* phases, and a nested one would count twice)
         if not camera_only:
             with phase("host/hull_seg"):
-                uv, n, still = pulled["uv"], int(pulled["n_alive"]), pulled["still_mask"]
-                within = ((uv[:, 0] > 0) & (uv[:, 0] < self.W - 1)
-                          & (uv[:, 1] > 0) & (uv[:, 1] < self.H - 1))
-                within[n:] = False
-                moving = within & ~still
-                ratio = still[:n].sum() / max(n, 1)
-                print_color(f"\t[still] mask ratio is {ratio:.4f}")
-                if moving.sum() > 5:
-                    hull = FastConcaveHull2D(uv[moving])
-                    self.move_seg = (hull.mask(self.W, self.H) * 255).astype(np.uint8)
-                    self.move_seg_erode = _erode(self.move_seg, 20)
-                if self.mask_prompt_pts is not None:
+                busy0 = writer_busy_s()
+                with phase("hull/select"):
+                    uv, n, still = pulled["uv"], int(pulled["n_alive"]), pulled["still_mask"]
+                    within = ((uv[:, 0] > 0) & (uv[:, 0] < self.W - 1)
+                              & (uv[:, 1] > 0) & (uv[:, 1] < self.H - 1))
+                    within[n:] = False
+                    moving = within & ~still
+                    ratio = still[:n].sum() / max(n, 1)
+                    print_color(f"\t[still] mask ratio is {ratio:.4f}")
                     sel = np.zeros(len(uv), bool)
-                    m = self.mask_prompt_pts
-                    sel[: len(m)] = m
-                    sel &= within
-                    if sel.sum() > 4:
-                        hull = FastConcaveHull2D(uv[sel])
-                        self.propagate_seg = (hull.mask(self.W, self.H) * 255).astype(
-                            np.uint8)
+                    if self.mask_prompt_pts is not None:
+                        m = self.mask_prompt_pts
+                        sel[: len(m)] = m
+                        sel &= within
+                    hull_moving, hull_prompt = moving.sum() > 5, sel.sum() > 4
+                if hull_moving or hull_prompt:
+                    with phase("hull/concave"):
+                        if hull_moving:
+                            hull = FastConcaveHull2D(uv[moving])
+                            self.move_seg = (hull.mask(self.W, self.H) * 255).astype(np.uint8)
+                        if hull_prompt:
+                            hull = FastConcaveHull2D(uv[sel])
+                            self.propagate_seg = (hull.mask(self.W, self.H) * 255).astype(
+                                np.uint8)
+                if hull_moving:
+                    with phase("hull/erode"):
+                        self.move_seg_erode = _erode(self.move_seg, 20)
+                if tel is not None:  # the writer thread's seconds beside the hull
+                    tel.add("writer/busy_in_hull", writer_busy_s() - busy0)
 
         # ---- diagnostic renders + still/move decomposition (trainer.py:627-697)
         out["last_rgb"] = _host((info["rgb"].clamp(0.0, 1.0) * 255).to(torch.uint8))

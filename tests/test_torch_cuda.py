@@ -13,7 +13,8 @@ or not, the host-called renders and projections, and the prior
 preparation's compiled paths (the alignment's Adam steps, the GMFlow and
 MASt3R forwards, the LMedS, the B-frame step) run as CUDA graphs equal the
 same calls eager exactly, deterministic algorithms on; a banded stage
-equals the unbanded one to 1e-6. small_eig (the LMedS's eigensolver)
+equals the unbanded one to 1e-6; a stage that stamps its iterations'
+pieces (ops/stamp.py) equals the same stage unstamped exactly. small_eig (the LMedS's eigensolver)
 against torch.linalg.eigh on separated spectra, n = 1..9 and batches of
 1, 33 and 512: residual |A v - l v| / |A| <= 1e-5 and |v . v_eigh| >=
 1 - 1e-5; a twice-repeated smallest eigenvalue: the residual, and v in
@@ -649,7 +650,7 @@ GRAPH_PATHS = {
 }
 
 
-def graph_stage(dev, path, graphs, seed=0):
+def graph_stage(dev, path, graphs, seed=0, stamps=False):
     from gflow_tpu_torch.ops.render import RenderConfig
     from gflow_tpu_torch.opt.losses import LossWeights
     from gflow_tpu_torch.opt.train import StageConfig, StageDynamics, train_stage
@@ -657,7 +658,7 @@ def graph_stage(dev, path, graphs, seed=0):
     params, state, targets, intr = graph_stage_inputs(dev, seed)
     cfg = StageConfig(W=96, H=64, iterations=8, telemetry_t_final=path == "lean",
                       render=RenderConfig(max_per_tile=64, max_tiles_per_gaussian=16),
-                      **GRAPH_PATHS[path])
+                      stamps=stamps, **GRAPH_PATHS[path])
     dyn = StageDynamics(lr=1e-2, lr_camera=1e-3, num_points=800, densify_occ_percent=0.5,
                         weights=LossWeights(rgb=1.0, depth=0.1, var=50.0))
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -710,6 +711,41 @@ def test_graphed_stage_equals_eager(dev, path):
     with stage_graphs.sync_check(dev):
         entry.graphs["step"].replay()
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("graphed", [True, False])
+def test_stamped_stage_pieces_and_same_losses(dev, graphed):
+    """A full stage with stamps (what a trainer with telemetry runs), as
+    CUDA graphs and eagerly (disable_graphs: the same stamp kernel): every
+    piece of every iteration is positive on the card's timer, and the
+    stamp kernel ran five times an iteration; the same stage without
+    stamps gives the same loss trace and parameters exactly,
+    deterministic algorithms on (a stamp writes only its own table)."""
+    from gflow_tpu_torch.ops.stamp import COLS, pieces
+    from gflow_tpu_torch.opt import graphs as stage_graphs
+
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for stamps in (True, False):
+            _build.LAUNCHES.clear()
+            with contextlib.nullcontext() if graphed else stage_graphs.disable_graphs():
+                out = graph_stage(dev, "lean", stage_graphs.GraphCache(), 0, stamps=stamps)
+            torch.cuda.synchronize()
+            runs[stamps] = (out, dict(_build.LAUNCHES))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (params, _, info), launches = runs[True]
+    (params0, _, info0), launches0 = runs[False]
+    table = info["stamps"].cpu().numpy()
+    assert table.shape == (8, COLS) and "stamps" not in info0
+    assert (np.diff(table, axis=1) > 0).all(), table
+    assert (table[1:, 0] >= table[:-1, -1]).all(), table
+    assert all(pieces(table)[k] > 0 for k in ("render", "loss", "backward", "update"))
+    assert launches.pop("stamp") == 8 * COLS and launches == launches0
+    assert torch.equal(info["loss_trace"], info0["loss_trace"])
+    for a, b in zip(params, params0):
+        assert torch.equal(a, b)
 
 
 def test_failed_capture_raises(dev, monkeypatch):

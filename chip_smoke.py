@@ -13,7 +13,10 @@
    main path's own packed input, upstream gradient and sorted stream (the
    first iteration of the canonical frame's camera-only and full stage);
    K4 (the binning tail, one launch) also on one two-class binning of
-   the full stage's projection, and beside torch.searchsorted;
+   the full stage's projection, and beside torch.searchsorted; the SSIM
+   kernels (ssim_fwd, ssim_bwd) against the plain version and autograd
+   through it at the fit's 854x480x3, timed beside their bound and the
+   plain forward and backward;
 4. drives the port's main path — the per-frame fit of bench.py's scene
    (854x480, 50,000 points, capacity 51,200, seed 0, M=8 / K=96) — with
    the launch counters reset just before and read just after: a short
@@ -40,8 +43,9 @@
    frame a camera-only stage and a full stage with its occ densify and
    one error densify; depth cut to FIT's iterations. Checks every kernel
    launched (the stamp kernel 5 times an iteration: fit_video's trainer
-   has telemetry), the log directory (checkpoint schema, videos, pickles), the
-   final PSNR and the move segmentation; renders the final checkpoint
+   has telemetry; ssim_bwd once an iteration), the log directory
+   (checkpoint schema, videos, pickles), the final PSNR and the move
+   segmentation; renders the final checkpoint
    (render_scene) and the trajectory line set through the kernels and
    through the plain versions, and the checkpoint loaded into a trainer;
    runs a rebin_every=4 stage through both, and holds the lists rebuilt
@@ -103,7 +107,8 @@
    path, in fit_video, in the eval, in the viewer, in prep and in the
    multi-GPU phase's banded stages; small_eig's, the prep path's own
    kernel, with its launches in prep; stamp's, with its launches in the
-   stamped stage and in fit_video), then as its last line
+   stamped stage and in fit_video; ssim_fwd's and ssim_bwd's, with their
+   launches in the main path and fit_video), then as its last line
    {"ok": true, "device": {...}}.
 
 The prep phase (between 7 and 8) prepares a second 4-frame sequence's
@@ -168,6 +173,13 @@ FIT_KERNELS = ("composite_fwd", "composite_fwd_cov", "composite_bwd", "bin_tail"
 OPS_K1 = lambda F: 20 + 2 * F
 OPS_K2 = lambda F: 22 + 2 * F
 OPS_K3 = lambda F: 39 + 4 * F
+# fp32 operations per (pixel, channel) of SSIM, counted from csrc/ssim.cu:
+# forward x^2 y^2 xy 3, five maps x 11 taps x 2 passes x (mul, add) 220, the
+# map 17, the coefficient maps 14, the mean 1; backward three maps x 11
+# taps x 2 passes x 2 = 132, the combination 6. Bytes: x and y in and the
+# three maps out (forward); the maps, x and y in and dL/dx out (backward)
+OPS_SSIM_FWD, OPS_SSIM_BWD = 255, 138
+BYTES_SSIM_FWD, BYTES_SSIM_BWD = 4 * 5, 4 * 6
 
 
 def log(msg):
@@ -504,6 +516,51 @@ def bwd_row(attrs, counts, bg, g, n_tx, with_cov):
                 bound_ms=b_ms, bound_by=b_by, live_slots=live)
 
 
+def ssim_rows(shape=(H, W, 3)):
+    """ssim_fwd and ssim_bwd against the plain version on the fit's image
+    shape: the mean SSIM's error, dL/dimg1's normalized by its max |ref|
+    (1e-5: tests/test_torch_cuda.py), the kernels' device times (fwd with
+    its coefficient maps, bwd) beside their bounds and the plain forward's
+    and forward + backward's."""
+    from gflow_tpu_torch.ops import ssim as ssim_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.rand(shape, generator=gen, device="cuda")
+    y = (0.7 * x + 0.3 * torch.rand(shape, generator=gen, device="cuda")).clamp(0, 1)
+    n = x.numel()
+    got, coef = ssim_ops.ssim_fwd(x, y, with_coef=True)
+    want = ssim_ops.ssim_plain(x, y)
+
+    def grad(fn):
+        leaf = x.detach().requires_grad_()
+        return torch.autograd.grad(1.0 - fn(leaf, y), leaf)[0]
+
+    g_k, g_p = grad(ssim_ops.ssim), grad(ssim_ops.ssim_plain)
+    torch.cuda.synchronize()
+    err, g_err = abs(float(got) - float(want)), float((g_k - g_p).abs().max())
+    norm_err = g_err / float(g_p.abs().max())
+    assert err <= 1e-6 and norm_err <= 1e-5, (err, norm_err)
+    one = torch.ones((), device="cuda")
+    fwd_ms = kernel_ms(lambda: ssim_ops.ssim_fwd(x, y, with_coef=True))
+    bwd_ms = kernel_ms(lambda: ssim_ops.ssim_bwd(x, y, coef, one))
+    plain_fwd_ms = cuda_ms(lambda: ssim_ops.ssim_plain(x, y), reps=5)
+    plain_ms = cuda_ms(lambda: grad(ssim_ops.ssim_plain), reps=5)
+    rows = {}
+    for name, ms, ops, nbytes, plain, e in (
+            ("ssim_fwd", fwd_ms, OPS_SSIM_FWD, BYTES_SSIM_FWD, plain_fwd_ms, err),
+            ("ssim_bwd", bwd_ms, OPS_SSIM_BWD, BYTES_SSIM_BWD, plain_ms, g_err)):
+        b_ms, b_by = bound(n * ops, n * nbytes)
+        rows[name] = dict(shape=list(shape), ms=ms, bound_ms=b_ms, bound_by=b_by,
+                          plain_ms=plain, max_abs_err=e, max_norm_err=norm_err)
+    log(f"# SSIM {'x'.join(map(str, shape))} ({SMI}): ssim_fwd {fwd_ms:.4f} ms (bound "
+        f"{rows['ssim_fwd']['bound_ms']:.4f}, {rows['ssim_fwd']['bound_by']}), ssim_bwd "
+        f"{bwd_ms:.4f} ms (bound {rows['ssim_bwd']['bound_ms']:.4f}, "
+        f"{rows['ssim_bwd']['bound_by']}); plain forward {plain_fwd_ms:.4f} ms, plain "
+        f"forward + backward {plain_ms:.4f} ms; |SSIM - plain| {err:.3e}, dL/dimg1 max err "
+        f"normalized {norm_err:.3e}")
+    return rows
+
+
 def synthetic_stream(gen, T):
     """A sorted stream of the main path's size: L = capacity x 8 entries
     (M = 8, single-class ids: group 8), tiles uniform in [0, T] (T = the
@@ -619,19 +676,27 @@ def build_report():
 
     from gflow_tpu_torch.ops import _build
 
-    kernels, name = {}, None
-    for line in _build.BUILD_LOGS.get("composite.cu", "").splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m and name:
-            kernels.setdefault(name, {})["spill"] = f"{m.group(1)}/{m.group(2)}"
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            kernels.setdefault(name, {})["regs"] = int(m.group(1))
-    report = json.dumps(kernels) if kernels else "no build log (built by an earlier process)"
-    log(f"# ptxas composite.cu: {report}")
+    def ptxas(source):
+        kernels, name = {}, None
+        for line in _build.BUILD_LOGS.get(source, "").splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                name = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and name:
+                kernels.setdefault(name, {})["spill"] = f"{m.group(1)}/{m.group(2)}"
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                kernels.setdefault(name, {})["regs"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            if m and name:
+                kernels.setdefault(name, {})["smem"] = int(m.group(1))
+        report = json.dumps(kernels) if kernels else "no build log (built by an earlier process)"
+        log(f"# ptxas {source}: {report}")
+        return kernels
+
+    kernels = ptxas("composite.cu")
+    ptxas("ssim.cu")
     eig = small_eig_ptxas(_build.BUILD_LOGS.get("small_eig.cu", ""))
     log(f"# ptxas small_eig.cu by n: {json.dumps(eig) if eig else 'no build log'}")
     fn = _build.library("composite.cu").gflow_composite_occupancy
@@ -843,7 +908,7 @@ def deterministic():
         torch.use_deterministic_algorithms(False)
 
 
-PLAIN_PARTS = ("fwd", "bwd", "tail")  # K1/K2, K3, K4
+PLAIN_PARTS = ("fwd", "bwd", "tail", "ssim")  # K1/K2, K3, K4, ssim_fwd/ssim_bwd
 
 
 class _SwappedComposite(torch.autograd.Function):
@@ -883,8 +948,12 @@ class _SwappedComposite(torch.autograd.Function):
 def plain_versions(parts=PLAIN_PARTS):
     """Route the main path through the kernels' plain PyTorch versions (on
     CUDA tensors, for the comparison run only): all of them, or those of
-    `parts` alone ("fwd": K1/K2, "bwd": K3, "tail": K4)."""
+    `parts` alone ("fwd": K1/K2, "bwd": K3, "tail": K4, "ssim": the loss's
+    and the eval's SSIM)."""
+    from gflow_tpu_torch.eval import metrics
     from gflow_tpu_torch.ops import binning, composite, cuda_raster
+    from gflow_tpu_torch.ops.ssim import ssim_plain
+    from gflow_tpu_torch.opt import losses
 
     parts = set(parts)
     assert parts <= set(PLAIN_PARTS), parts
@@ -900,6 +969,9 @@ def plain_versions(parts=PLAIN_PARTS):
                     g_attrs, counts, bg, n_tx, with_cov, row0, plain_fwd)))
         if "tail" in parts:
             stack.enter_context(mock.patch.object(binning, "bin_tail", binning.bin_tail_plain))
+        if "ssim" in parts:
+            stack.enter_context(mock.patch.object(losses, "ssim", ssim_plain))
+            stack.enter_context(mock.patch.object(metrics, "_ssim", ssim_plain))
         yield
 
 
@@ -1087,7 +1159,7 @@ def _main_path(scene):
     launches, replayed = dict(_build.LAUNCHES), dict(_build.REPLAYED)
     log(f"# main path launches: {launches}, of them in CUDA graph replays {replayed}; graph "
         f"replays {dict(stage_graphs.REPLAYS)}")
-    for name in FIT_KERNELS:
+    for name in (*FIT_KERNELS, "ssim_fwd", "ssim_bwd"):
         assert launches.get(name, 0) > 0, f"kernel {name} never launched on the main path"
         assert replayed.get(name, 0) > 0, f"kernel {name} never launched in a graph replay"
 
@@ -1617,6 +1689,11 @@ def fit_video_phase(scene):
     iters = summary["phases"]["iter/render"]["calls"]
     log(f"# fit_video stamps: {launches.get('stamp')} launches over {iters} iterations")
     assert launches.get("stamp") == COLS * iters, (launches.get("stamp"), iters)
+    # the loss's SSIM: the backward kernel once an iteration, the forward's
+    # other launches the no-grad forwards (error densify, a stage's output)
+    log(f"# fit_video SSIM: ssim_fwd {launches.get('ssim_fwd')}, ssim_bwd "
+        f"{launches.get('ssim_bwd')} launches over {iters} iterations")
+    assert launches.get("ssim_bwd") == iters and launches.get("ssim_fwd", 0) > iters, launches
 
     # the final checkpoint, as a saved scene, through the kernels and through
     # the plain versions; then loaded into a trainer, which renders the same
@@ -3203,7 +3280,7 @@ def graph_report(trainer):
                                           ctypes.byref(n))
                 assert rc == 0, f"cuGraphGetNodes failed: CUresult {rc}"
                 rows.append({"cache": cache_name, **what, "compositor": ctx[0].__name__,
-                             "deterministic": ctx[3], "graph": name, "nodes": n.value,
+                             "deterministic": ctx[-2], "graph": name, "nodes": n.value,
                              "capture_s": g.capture_s, "instantiate_s": g.instantiate_s,
                              "launches": len(g.launches)})
     log(f"# CUDA graphs recorded ({len(rows)}): {json.dumps(rows)}")
@@ -3296,6 +3373,7 @@ def main():
     scene = bench_scene()
     inputs = timed("main path inputs", main_path_inputs, scene)
     rows = timed("kernels", kernel_phase, inputs)
+    ssim = timed("ssim", ssim_rows)
     launches, replayed, stamps = timed("main path", main_path, scene)
     fit = timed("fit_video", fit_video_phase, scene)
     ev = timed("eval", eval_phase, fit)
@@ -3393,6 +3471,20 @@ def main():
         "prep_launches": prep["launches"].get("stamp", 0),
         "multigpu_launches": multi["launches"].get("stamp", 0),
         "ms_per_iter": stamps["ms_per_iter"]})
+    # the loss's SSIM (fit path, eval's metric): no Pallas kernel, XLA fuses
+    # the JAX package's
+    for name in ("ssim_fwd", "ssim_bwd"):
+        kernels.append({
+            "name": name, "route": "cuda", "source": "gflow_tpu_torch/csrc/ssim.cu",
+            "replaces": "gflow_tpu/opt/losses.py ssim", "pallas_counterpart": None,
+            "note": "no Pallas kernel: stands in for the plain version's ~90 elementwise "
+                    "launches an iteration",
+            "launches": launches.get(name, 0), "main_path_launches": launches.get(name, 0),
+            "fit_video_launches": fit["launches"].get(name, 0),
+            "eval_launches": ev["launches"].get(name, 0),
+            "viewer_launches": viewer["launches"].get(name, 0),
+            "prep_launches": prep["launches"].get(name, 0),
+            "multigpu_launches": multi["launches"].get(name, 0), **ssim[name]})
     log(f"# chip_smoke wall time {time.perf_counter() - t_start:.1f} s; by phase (s) "
         f"{json.dumps(phase_s)}")
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """Image quality metrics — PSNR / SSIM / LPIPS.
 
 Counterpart of ``gflow_tpu/eval/metrics.py``. PSNR is NumPy; SSIM is the
-port's ``opt.losses.ssim`` (window 11, sigma 1.5) on the given device;
+port's ``opt.losses.ssim`` (window 11, sigma 1.5; ``ops/ssim.py``: the
+forward kernel on the card, the plain version on the CPU) on the given device;
 LPIPS is the standard AlexNet-based metric as a ``torch.nn.Module`` built
 from the flat weight dict that ``eval.lpips_convert`` writes. It is
 weights-gated, as in the JAX package: without a weights file LPIPS is None

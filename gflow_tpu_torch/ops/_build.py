@@ -49,6 +49,8 @@ KERNELS = {
     "bin_tail": ("pack.cu", "gflow_bin_tail", (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I)),
     "small_eig": ("small_eig.cu", "gflow_small_eig", (_P, _P, _I, _I)),
     "stamp": ("stamp.cu", "gflow_stamp", (_P, _P, _I, _I, _I)),
+    "ssim_fwd": ("ssim.cu", "gflow_ssim_fwd", (_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P)),
+    "ssim_bwd": ("ssim.cu", "gflow_ssim_bwd", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
 }
 
 # launches per kernel name since the last reset (``LAUNCHES.clear()``):

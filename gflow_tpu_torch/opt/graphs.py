@@ -98,13 +98,14 @@ def graphed(dev: torch.device) -> bool:
 
 def recording_context() -> tuple:
     """What, besides a stage's configuration, decides the kernels that a
-    capture records: the compositor, binning and binning-tail entry points
-    in place (a comparison run swaps in their plain versions),
+    capture records: the compositor, binning, binning-tail and SSIM entry
+    points in place (a comparison run swaps in their plain versions),
     deterministic algorithms and TF32 matrix products (the plain
     compositor's)."""
     from ..ops import binning, cuda_raster, render
+    from . import losses
 
-    return (cuda_raster.packed_composite, binning.bin_tail, render.bin_gaussians,
+    return (cuda_raster.packed_composite, binning.bin_tail, render.bin_gaussians, losses.ssim,
             torch.are_deterministic_algorithms_enabled(), torch.backends.cuda.matmul.allow_tf32)
 
 

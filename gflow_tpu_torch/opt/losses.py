@@ -2,15 +2,16 @@
 
 Counterpart of ``gflow_tpu/opt/losses.py``. All terms work on
 fixed-capacity tensors with boolean masks; masked means use
-sum(x*m)/max(sum(m), 1), so dead slots contribute nothing.
+sum(x*m)/max(sum(m), 1), so dead slots contribute nothing. The rgb
+term's SSIM is ``ops/ssim.py``'s: its kernels on CUDA tensors.
 """
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
-import numpy as np
 import torch
+
+from ..ops.ssim import ssim
 
 
 class LossWeights(NamedTuple):
@@ -20,53 +21,6 @@ class LossWeights(NamedTuple):
     scale: float = 0.0
     still: float = 0.0
     flow: float = 0.0
-
-
-def _ssim_window(window_size: int = 11, sigma: float = 1.5) -> list[float]:
-    g = np.asarray([math.exp(-((x - window_size // 2) ** 2) / (2 * sigma**2))
-                    for x in range(window_size)], np.float32)
-    return (g / g.sum()).tolist()
-
-
-def _separable_blur(x: torch.Tensor, w1d) -> torch.Tensor:
-    """(H, W, C) -> same-size separable blur with zero padding, as k-tap
-    shifted multiply-adds (the reference's form, kept instead of a
-    convolution so the sums run in the same order)."""
-    r = len(w1d) // 2
-
-    def pass_axis(v, axis):
-        n = v.shape[axis]
-        pad = [0, 0] * v.ndim
-        pad[2 * (v.ndim - 1 - axis)] = r
-        pad[2 * (v.ndim - 1 - axis) + 1] = r
-        vp = torch.nn.functional.pad(v, pad)
-        out = None
-        for i, wi in enumerate(w1d):
-            term = wi * vp.narrow(axis, i, n)
-            out = term if out is None else out + term
-        return out
-
-    return pass_axis(pass_axis(x, 0), 1)
-
-
-def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11) -> torch.Tensor:
-    """Mean SSIM of two (H, W, C) images in [0, 1] (window 11, sigma 1.5,
-    zero-padded — gflow/utils/pytorch_ssim.py); the five blurred maps are
-    computed in one stacked separable pass."""
-    w1d = _ssim_window(window_size)
-    x, y = img1, img2
-    C = x.shape[-1]
-    b = _separable_blur(torch.cat([x, y, x * x, y * y, x * y], dim=-1), w1d)
-    mu1, mu2 = b[..., :C], b[..., C:2 * C]
-    e_x2, e_y2, e_xy = b[..., 2 * C:3 * C], b[..., 3 * C:4 * C], b[..., 4 * C:]
-    mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2
-    sigma1_sq = e_x2 - mu1_sq
-    sigma2_sq = e_y2 - mu2_sq
-    sigma12 = e_xy - mu1_mu2
-    C1, C2 = 0.01**2, 0.03**2
-    ssim_map = ((2 * mu1_mu2 + C1) * (2 * sigma12 + C2)) / (
-        (mu1_sq + mu2_sq + C1) * (sigma1_sq + sigma2_sq + C2))
-    return ssim_map.mean()
 
 
 def masked_mean(x, mask, dim=None):

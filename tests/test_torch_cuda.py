@@ -20,7 +20,13 @@ against torch.linalg.eigh on separated spectra, n = 1..9 and batches of
 1 - 1e-5; a twice-repeated smallest eigenvalue: the residual, and v in
 its eigenspace to 1 - 1e-5; the zero matrix and the identity: a finite
 unit vector; a matrix of NaNs leaves the rest of its batch exactly as
-without it."""
+without it. The SSIM kernels (ops/ssim.py) against the plain version at
+854x480x3 and at sizes down to 7x5 (smaller than the window), one and
+three channels: the mean within 1e-6 absolute, bitwise repeatable;
+dL/dimg1 within 1e-5 of its largest entry (assert_ssim_grads_close); the
+camera-only masked input and a channel slice read in place; under no_grad
+no coefficient maps; a captured call replays exactly as the eager one; in
+a stamped stage ssim_bwd once an iteration."""
 import contextlib
 
 import numpy as np
@@ -1127,3 +1133,154 @@ def test_graphed_replicas_over_two_cards(dev):
     with torch.inference_mode():
         assert graph_vs_eager(lambda: run(x), checked=True, launched=()) == {"replica": 2}
     assert sorted(str(k[3]) for k in cache.entries) == ["cuda:0", "cuda:1"]
+
+
+SSIM_SHAPES = [(480, 854, 3), (37, 23, 3), (37, 23, 1), (7, 5, 3), (7, 5, 1)]
+
+
+def ssim_images(dev, shape, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand(*shape, generator=g)
+    y = (0.7 * x + 0.3 * torch.rand(*shape, generator=g)).clamp(0, 1)
+    return x.to(dev), y.to(dev)
+
+
+def ssim_grads(fn, x, y, keep=None):
+    """1 - fn(x * keep, y * keep) and its gradient with respect to x."""
+    leaf = x.detach().clone().requires_grad_()
+    r, t = (leaf, y) if keep is None else (leaf * keep, y * keep)
+    loss = 1.0 - fn(r, t)
+    return loss.detach(), torch.autograd.grad(loss, leaf)[0]
+
+
+def assert_ssim_grads_close(got, want):
+    """Kernel against autograd through the plain version, each in float32:
+    within 1e-5 of the largest entry. The two order the same operations
+    differently (the coefficient formula against autograd's chain through
+    mu^2 and sigma = E[x^2] - mu^2, and the blur's sums), ~1e-7 relative
+    an operation, which the cancellation in sigma amplifies up to ~10x."""
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("shape", SSIM_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_ssim_kernels_match_plain(dev, shape):
+    """ssim_fwd: the mean within 1e-6 absolute of the plain version on the
+    card (the blurred maps and the SSIM map are its float32 operations; the
+    mean's summation order differs), and bitwise the same on repeat;
+    ssim_bwd: dL/dimg1 of 1 - SSIM as autograd's through the plain
+    version (assert_ssim_grads_close), also for images smaller than the
+    window and a single channel."""
+    from gflow_tpu_torch.ops import ssim as ssim_ops
+
+    x, y = ssim_images(dev, shape)
+    with torch.no_grad():
+        got, want = ssim_ops.ssim(x, y), ssim_ops.ssim_plain(x, y)
+        again = ssim_ops.ssim(x, y)
+    torch.cuda.synchronize()
+    assert abs(float(got) - float(want)) <= 1e-6, (float(got), float(want))
+    assert torch.equal(got, again)
+    loss_k, g_k = ssim_grads(ssim_ops.ssim, x, y)
+    loss_p, g_p = ssim_grads(ssim_ops.ssim_plain, x, y)
+    torch.cuda.synchronize()
+    assert abs(float(loss_k) - float(loss_p)) <= 1e-6
+    assert_ssim_grads_close(g_k, g_p)
+    assert torch.equal(g_k, ssim_grads(ssim_ops.ssim, x, y)[1])  # no atomics
+
+
+@pytest.mark.parametrize("layout", ["camera_only", "channel_slice"])
+def test_ssim_kernels_on_the_fit_inputs(dev, layout):
+    """The fit's own inputs at 854x480: the camera-only stage's (both
+    images times the not-moving mask, the gradient through the mask) and
+    the full stage's (the rendered rgb, a channel slice of the (H, W, 4)
+    composite, read in place)."""
+    from gflow_tpu_torch.ops import ssim as ssim_ops
+
+    x, y = ssim_images(dev, (480, 854, 3), seed=1)
+    if layout == "camera_only":
+        keep = torch.ones(480, 854, 1, device=dev)
+        keep[200:320, 300:460] = 0
+        got, want = (ssim_grads(fn, x, y, keep) for fn in (ssim_ops.ssim, ssim_ops.ssim_plain))
+    else:
+        img = torch.cat([x, torch.rand(480, 854, 1, device=dev)], -1).requires_grad_()
+        grads = []
+        for fn in (ssim_ops.ssim, ssim_ops.ssim_plain):
+            loss = 1.0 - fn(img[..., :3], y)
+            grads.append((loss.detach(), torch.autograd.grad(loss, img)[0]))
+        got, want = grads
+        assert not got[1][..., 3].any()
+    torch.cuda.synchronize()
+    assert abs(float(got[0]) - float(want[0])) <= 1e-6
+    assert_ssim_grads_close(got[1], want[1])
+
+
+def test_ssim_no_grad_writes_no_coefficient_maps(dev):
+    """Under no_grad, or for an img1 that needs no gradient, ssim_fwd gets
+    a null coefficient pointer (its last argument 0); with a gradient the
+    (3, H, W, C) maps; img2 requiring a gradient raises."""
+    from gflow_tpu_torch.ops import ssim as ssim_ops
+
+    x, y = ssim_images(dev, (37, 23, 3))
+    seen = []
+    hook = lambda name, args: seen.append((name, args[-1]))
+    _build.LAUNCH_HOOKS.append(hook)
+    try:
+        leaf = x.clone().requires_grad_()
+        with torch.no_grad():
+            ssim_ops.ssim(leaf, y)
+        ssim_ops.ssim(x, y)
+        ssim_ops.ssim(leaf, y)
+    finally:
+        _build.LAUNCH_HOOKS.remove(hook)
+    assert seen == [("ssim_fwd", 0), ("ssim_fwd", 0), ("ssim_fwd", (3, 37, 23, 3))]
+    with pytest.raises(ValueError, match="img2"):
+        ssim_ops.ssim(x, y.clone().requires_grad_())
+
+
+def test_ssim_captured_equals_eager(dev):
+    """1 - SSIM and its gradient captured in a CUDA graph: a replay equals
+    the eager call exactly, also after new images are copied into the
+    graph's inputs."""
+    from gflow_tpu_torch.ops import ssim as ssim_ops
+
+    x, y = ssim_images(dev, (480, 854, 3), seed=2)
+    step = lambda: ssim_grads(ssim_ops.ssim, x, y)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    for seed in (2, 3):
+        x2, y2 = ssim_images(dev, (480, 854, 3), seed=seed)
+        x.copy_(x2)
+        y.copy_(y2)
+        graph.replay()
+        eager = step()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], eager[0]) and torch.equal(out[1], eager[1])
+
+
+@pytest.mark.parametrize("path", ["lean", "camera"])
+def test_ssim_kernels_once_per_iteration(dev, path):
+    """A stamped stage (as CUDA graphs): ssim_bwd and ssim_fwd with its
+    coefficient maps once an iteration; the no-grad forwards (the error
+    densify's and the stage's final one) take ssim_fwd without them."""
+    from gflow_tpu_torch.ops.stamp import COLS
+    from gflow_tpu_torch.opt import graphs as stage_graphs
+
+    coef = []
+    hook = lambda name, args: coef.append(args[-1] != 0) if name == "ssim_fwd" else None
+    _build.LAUNCHES.clear()
+    _build.LAUNCH_HOOKS.append(hook)
+    try:
+        graph_stage(dev, path, stage_graphs.GraphCache(), stamps=True)
+        torch.cuda.synchronize()
+    finally:
+        _build.LAUNCH_HOOKS.remove(hook)
+    iters = _build.LAUNCHES["stamp"] // COLS
+    assert iters == 8
+    assert _build.LAUNCHES["ssim_bwd"] == coef.count(True) == iters
+    # lean: the error densify's forward and the final one; camera: the final one
+    assert coef.count(False) == (2 if path == "lean" else 1)

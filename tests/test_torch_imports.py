@@ -57,5 +57,6 @@ def test_port_has_the_slice_modules():
                 "pipeline/prep_flow.py", "pipeline/prep_moveseg.py", "pipeline/prep_depth.py",
                 "cli/prep_flow.py", "cli/prep_moveseg.py", "cli/prep_depth.py",
                 "cli/convert_weights.py", "parallel/__init__.py", "parallel/mesh.py",
-                "parallel/multichip.py", "parallel/scene_sweep.py", "cli/fit_multi.py"):
+                "parallel/multichip.py", "parallel/scene_sweep.py", "cli/fit_multi.py",
+                "ops/stamp.py", "ops/ssim.py"):
         assert f"gflow_tpu_torch/{mod}" in names, mod

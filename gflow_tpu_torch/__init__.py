@@ -1,6 +1,7 @@
 """PyTorch/CUDA port of gflow-tpu: the prior preparation that a fit reads
-(``pipeline.prep_flow``, ``prep_moveseg`` and ``prep_depth``, with the
-GMFlow and MASt3R models of ``models/``), the 4D Gaussian fit of a video
+(``pipeline.prep_flow``, ``prep_moveseg``, ``prep_depth`` and
+``prep_mask``, with the GMFlow, MASt3R and Segment Anything models of
+``models/``), the 4D Gaussian fit of a video
 (``pipeline.fit_video``) and the per-frame stages under it, the benchmark
 that scores a fit (``eval.benchmark``), the viewer (``viz.viewer``) and
 the TAP-Vid splitter (``pipeline.split_tapvid``), and the multi-GPU modes

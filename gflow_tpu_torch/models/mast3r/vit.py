@@ -9,8 +9,9 @@ the released CroCo/DUSt3R keys (``patch_embed.proj``, ``enc_blocks.{i}``,
 ``dec_norm``, ``downstream_head{1,2}``), so a released state dict loads
 with ``load_state_dict(strict=True)`` once ``convert._IGNORED_PREFIXES``
 are dropped (``convert.load_weights``). Attention is plain matrix
-products; GELU is exact erf and LayerNorm eps 1e-6, as CroCo's. Inputs
-and outputs are channels-last, as the JAX model's.
+products (``models/attention.py``, shared with SAM); GELU is exact erf
+and LayerNorm eps 1e-6, as CroCo's. Inputs and outputs are
+channels-last, as the JAX model's.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..attention import attend
 from ..precision import fp32_math
 from .dpt_head import CatMlpDptHead, pixel_shuffle_tokens, reg_dense_pts3d
 
@@ -60,14 +62,6 @@ def rope_2d(q: torch.Tensor, positions: torch.Tensor, base: float = 100.0) -> to
                       rot(q[..., half:], positions[:, 1])], -1)
 
 
-def _attend(q, k, v):
-    """(B, Nq, H, D), (B, Nk, H, D) x2 -> (B, Nq, H*D)."""
-    B, Nq, Hh, D = q.shape
-    attn = torch.matmul(q.transpose(1, 2), k.permute(0, 2, 3, 1)) / D ** 0.5
-    out = torch.matmul(torch.softmax(attn, dim=-1), v.transpose(1, 2))
-    return out.transpose(1, 2).reshape(B, Nq, Hh * D)
-
-
 class SelfAttention(nn.Module):
     def __init__(self, dim, heads, rope_base):
         super().__init__()
@@ -80,7 +74,7 @@ class SelfAttention(nn.Module):
         qkv = self.qkv(x).reshape(B, N, 3, self.heads, C // self.heads)
         q, k, v = qkv.unbind(2)
         q, k = rope_2d(q, pos, self.rope_base), rope_2d(k, pos, self.rope_base)
-        return self.proj(_attend(q, k, v))
+        return self.proj(attend(q, k, v))
 
 
 class CrossAttention(nn.Module):
@@ -97,7 +91,7 @@ class CrossAttention(nn.Module):
         split = lambda t: t.reshape(B, t.shape[1], self.heads, C // self.heads)
         q = rope_2d(split(self.projq(x)), pos_q, self.rope_base)
         k = rope_2d(split(self.projk(kv)), pos_kv, self.rope_base)
-        return self.proj(_attend(q, k, split(self.projv(kv))))
+        return self.proj(attend(q, k, split(self.projv(kv))))
 
 
 class Mlp(nn.Module):

@@ -12,7 +12,9 @@ one table's stamps are read (``pieces``).
 
 An iteration's columns: its start, after projection, binning and
 compositing, after the losses (the forward's end), after the backward,
-after the gated Adam step and the loss trace's write (its end).
+after the gated Adam step and the loss trace's write (its end). The mask
+prior (``pipeline/prep_mask.py``) stamps between graph replays the same
+way, a row for the encode and one for each decode batch.
 """
 from __future__ import annotations
 

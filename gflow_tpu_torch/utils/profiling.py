@@ -9,8 +9,10 @@ Counterpart of ``gflow_tpu/utils/profiling.py``:
   seconds count as the parent's children (``self_seconds``: a phase less
   its children). `Telemetry.add(name, seconds, calls)` records a duration
   measured elsewhere, on the card or on another thread; it has no parent.
-  `Telemetry` also counts frames and optimizer steps (s/frame, steps/s)
-  and gauges, and dumps everything as JSON. A Telemetry's phases are opened
+  `Telemetry` also counts frames and optimizer steps (s/frame, steps/s),
+  named counts (`count(name, n)`: how many items a stage handled, such as
+  the mask prior's prompts and the masks each filter kept) and gauges,
+  and dumps everything as JSON. A Telemetry's phases are opened
   from one thread.
 - `current()`: the process-wide Telemetry, which program code outside a
   trainer records into (the prior preparation's stages).
@@ -71,6 +73,7 @@ class Telemetry:
         self.frames = 0
         self.opt_steps = 0
         self.gauges = {}
+        self.counters = defaultdict(int)
         self._open = []  # the open phases' names, innermost last
         self._t0 = time.time_ns()
 
@@ -120,6 +123,10 @@ class Telemetry:
         self.frames += 1
         self.opt_steps += opt_steps
 
+    def count(self, name: str, n: int = 1):
+        """Add n to the counter `name`."""
+        self.counters[name] += int(n)
+
     def gauge(self, name: str, value):
         """Record a point-in-time observable (e.g. tile-truncation rate)."""
         self.gauges[name] = value
@@ -143,6 +150,8 @@ class Telemetry:
                 for k, v in sorted(self.phase_seconds.items())
             },
         }
+        if self.counters:
+            out["counters"] = dict(sorted(self.counters.items()))
         out.update(self.gauges)
         return out
 

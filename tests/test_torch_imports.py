@@ -58,5 +58,7 @@ def test_port_has_the_slice_modules():
                 "cli/prep_flow.py", "cli/prep_moveseg.py", "cli/prep_depth.py",
                 "cli/convert_weights.py", "parallel/__init__.py", "parallel/mesh.py",
                 "parallel/multichip.py", "parallel/scene_sweep.py", "cli/fit_multi.py",
-                "ops/stamp.py", "ops/ssim.py"):
+                "ops/stamp.py", "ops/ssim.py", "models/attention.py", "models/sam/__init__.py",
+                "models/sam/image_encoder.py", "models/sam/decoder.py", "models/sam/model.py",
+                "models/sam/convert.py", "pipeline/prep_mask.py", "cli/prep_mask.py"):
         assert f"gflow_tpu_torch/{mod}" in names, mod

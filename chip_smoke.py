@@ -16,7 +16,12 @@
    the full stage's projection, and beside torch.searchsorted; the SSIM
    kernels (ssim_fwd, ssim_bwd) against the plain version and autograd
    through it at the fit's 854x480x3, timed beside their bound and the
-   plain forward and backward;
+   plain forward and backward; the SAM mask decoder's image-stream kernels
+   (sam_stream_init, sam_t2i_attend, sam_i2t_attend, sam_residual_ln)
+   against their plain versions at the automatic grid's batch (64
+   prompts, 64x64x256, 7 tokens), timed beside their bound, the plain
+   version and, for the attentions, scaled_dot_product_attention; one
+   64-prompt decode's graph replay, its launches and its device kernels;
 4. drives the port's main path — the per-frame fit of bench.py's scene
    (854x480, 50,000 points, capacity 51,200, seed 0, M=8 / K=96) — with
    the launch counters reset just before and read just after: a short
@@ -108,7 +113,8 @@
    multi-GPU phase's banded stages; small_eig's, the prep path's own
    kernel, with its launches in prep; stamp's, with its launches in the
    stamped stage and in fit_video; ssim_fwd's and ssim_bwd's, with their
-   launches in the main path and fit_video), then as its last line
+   launches in the main path and fit_video; the SAM decoder's four, with
+   their launches a decode), then as its last line
    {"ok": true, "device": {...}}.
 
 The prep phase (between 7 and 8) prepares a second 4-frame sequence's
@@ -559,6 +565,115 @@ def ssim_rows(shape=(H, W, 3)):
         f"forward + backward {plain_ms:.4f} ms; |SSIM - plain| {err:.3e}, dL/dimg1 max err "
         f"normalized {norm_err:.3e}")
     return rows
+
+
+# SAM's mask decoder at the automatic grid's batch: 64 prompts, a 64 x 64
+# grid of 256 channels, 7 tokens, cross attention 8 heads of 16
+SAM_B, SAM_GRID, SAM_C, SAM_I, SAM_T = 64, 64, 256, 128, 7
+
+
+def sam_decoder_work(B, N, C=SAM_C, I=SAM_I, T=SAM_T):
+    """fp32 operations and bytes each image-stream kernel's function needs
+    (each input byte read once, each output written once), by kernel name.
+    An attention: per (prompt, token, head, image row) a dot of 16 and a
+    weighted sum of 16 (4 I a (token, row) pair), the scale, max, exp and
+    sum (~5 a head); the norm ~10 a value; stream_init one add a value."""
+    att_ops = B * T * N * (4 * I + 5 * 8)
+    return {
+        "sam_stream_init": (C * N + B * N * C, 4 * (2 * C * N + C + 2 * B * N * C)),
+        "sam_t2i_attend": (att_ops, 4 * (2 * B * T * I + 2 * B * N * I)),
+        "sam_i2t_attend": (att_ops, 4 * (2 * B * N * I + 2 * B * T * I)),
+        "sam_residual_ln": (10 * B * N * C, 4 * (4 * B * N * C + N * C + 2 * C)),
+    }
+
+
+def sam_decoder_rows():
+    """The decoder's image-stream kernels (ops/sam_decoder.py) against their
+    plain versions at the grid's shapes: max error relative to the largest
+    value, device ms beside the bytes' bound and the plain version's ms;
+    for the attentions also torch's scaled_dot_product_attention on
+    head-major copies made beforehand (library_ms: a yardstick the port
+    never calls). Then one 64-prompt decode (prep_mask.decode, its CUDA
+    graph) at the released decoder widths: its ms, its launches, and its
+    device kernels by time under torch.profiler."""
+    import torch.nn.functional as F
+
+    from gflow_tpu_torch.ops import _build
+    from gflow_tpu_torch.ops import sam_decoder as sd
+    from gflow_tpu_torch.pipeline import prep_mask
+
+    B, N, heads = SAM_B, SAM_GRID ** 2, 8
+    g = torch.Generator(device="cuda").manual_seed(6)
+    r = lambda *s, scale=1.0: torch.randn(*s, generator=g, device="cuda") * scale
+    image, dense, pe = r(1, SAM_C, SAM_GRID, SAM_GRID), r(SAM_C), r(N, SAM_C)
+    q_t, k_n, v_n = r(B, SAM_T, SAM_I, scale=2.0), r(B, N, SAM_I), r(B, N, SAM_I)
+    q_n, k_t, v_t = r(B, N, SAM_I, scale=2.0), r(B, SAM_T, SAM_I), r(B, SAM_T, SAM_I)
+    keys, out, w, b = r(B, N, SAM_C), r(B, N, SAM_C), r(SAM_C), r(SAM_C)
+    heads_major = lambda t: t.reshape(*t.shape[:2], heads, -1).transpose(1, 2).contiguous()
+    calls = {
+        "sam_stream_init": (lambda: sd.stream_init(image, dense, pe, B),
+                            lambda: sd.stream_init_plain(image, dense, pe, B), None),
+        "sam_t2i_attend": (lambda: sd.t2i_attend(q_t, k_n, v_n, heads),
+                           lambda: sd.cross_attend_plain(q_t, k_n, v_n, heads),
+                           (heads_major(q_t), heads_major(k_n), heads_major(v_n))),
+        "sam_i2t_attend": (lambda: sd.i2t_attend(q_n, k_t, v_t, heads),
+                           lambda: sd.cross_attend_plain(q_n, k_t, v_t, heads),
+                           (heads_major(q_n), heads_major(k_t), heads_major(v_t))),
+        "sam_residual_ln": (lambda: sd.residual_ln(keys, out, w, b, 1e-5, pe),
+                            lambda: sd.residual_ln_plain(keys, out, w, b, 1e-5, pe), None),
+    }
+    work = sam_decoder_work(B, N)
+    rows = {}
+    for name, (kernel, plain, lib) in calls.items():
+        got, want = kernel(), plain()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        torch.cuda.synchronize()
+        err = max(float((a - c).abs().max() / c.abs().max()) for a, c in zip(got, want))
+        assert err <= 1e-5, (name, err)
+        b_ms, b_by = bound(*work[name])
+        rows[name] = dict(ms=kernel_ms(kernel), bound_ms=b_ms, bound_by=b_by,
+                          plain_ms=cuda_ms(plain, reps=5), max_rel_err=err,
+                          library_ms=(kernel_ms(lambda: F.scaled_dot_product_attention(*lib))
+                                      if lib else None))
+        rows[name]["roofline_pct"] = 100 * b_ms / rows[name]["ms"]
+    del q_t, k_n, v_n, q_n, k_t, v_t, keys, out, calls
+    # one decode of the grid's batch through its graph, as prep_mask runs it
+    from gflow_tpu_torch.models.random_weights import seeded_state_dict
+    from gflow_tpu_torch.models.sam import SamConfig, SamModel, convert
+
+    cfg = SamConfig(encoder_embed_dim=64, encoder_depth=2, encoder_num_heads=4,
+                    encoder_global_attn_indexes=(1,),  # the encoder is not run
+                    image_size=SAM_GRID * 16)
+    model = SamModel(cfg)
+    model.load_state_dict(seeded_state_dict(convert.expected_torch_keys(cfg), 0, 1.0))
+    model = model.eval().cuda()
+    emb = r(1, SAM_C, SAM_GRID, SAM_GRID)
+    pts = torch.rand(B, 2, generator=g, device="cuda") * cfg.image_size
+    dev = torch.device("cuda")
+    decode = lambda: prep_mask.decode(model, emb, pts, dev)
+    with torch.inference_mode():
+        decode()
+        _build.LAUNCHES.clear()
+        decode()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _build.LAUNCHES.items() if k.startswith("sam_")}
+        decode_ms = cuda_ms(decode, reps=10)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                decode()
+            torch.cuda.synchronize()
+    ops = sorted(((us / 3e3, c / 3, k[:70]) for us, c, k in device_rows(prof)), reverse=True)
+    busy = sum(o[0] for o in ops)
+    decode_row = {"ms": decode_ms, "device_busy_ms": busy if ops else "not measured",
+                  "launches": launches,
+                  "top": [{"name": k, "ms": ms, "calls": c} for ms, c, k in ops[:12]]}
+    log(f"# SAM decoder image stream ({SMI}), B {B}, N {N}, C {SAM_C}, T {SAM_T}: " + "; ".join(
+        f"{n} {x['ms']:.4f} ms (bound {x['bound_ms']:.4f}, {x['bound_by']}, "
+        f"{x['roofline_pct']:.1f}%; plain {x['plain_ms']:.4f}"
+        + (f", sdpa {x['library_ms']:.4f}" if x["library_ms"] else "")
+        + f"; rel err {x['max_rel_err']:.2e})" for n, x in rows.items()))
+    log(f"# SAM decode of {B} prompts (graph): {json.dumps(decode_row)}")
+    return rows, decode_row
 
 
 def synthetic_stream(gen, T):
@@ -3374,6 +3489,7 @@ def main():
     inputs = timed("main path inputs", main_path_inputs, scene)
     rows = timed("kernels", kernel_phase, inputs)
     ssim = timed("ssim", ssim_rows)
+    sam, sam_decode = timed("sam decoder", sam_decoder_rows)
     launches, replayed, stamps = timed("main path", main_path, scene)
     fit = timed("fit_video", fit_video_phase, scene)
     ev = timed("eval", eval_phase, fit)
@@ -3485,6 +3601,17 @@ def main():
             "viewer_launches": viewer["launches"].get(name, 0),
             "prep_launches": prep["launches"].get(name, 0),
             "multigpu_launches": multi["launches"].get(name, 0), **ssim[name]})
+    # the mask prior's decoder (prep_mask, not on the fit's path): no Pallas
+    # kernel, SAM has no counterpart in the JAX package
+    for name, r in sam.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": "gflow_tpu_torch/csrc/sam_decoder.cu",
+            "replaces": None, "pallas_counterpart": None,
+            "note": "no Pallas kernel: the image stream of SAM's mask decoder, in place of "
+                    "strided copies, broadcast adds, materialised scores and separate norms",
+            "launches_per_decode": sam_decode["launches"].get(name, 0),
+            "main_path_launches": launches.get(name, 0),
+            "prep_launches": prep["launches"].get(name, 0), **r})
     log(f"# chip_smoke wall time {time.perf_counter() - t_start:.1f} s; by phase (s) "
         f"{json.dumps(phase_s)}")
     print(json.dumps({"kernels": kernels}))

@@ -11,6 +11,14 @@ prompt_encoder.py``, ``mask_decoder.py``, ``transformer.py``).
   prompt, the transposed-convolution upscaler, a hypernetwork MLP per mask
   token and the IoU head.
 
+The transformer's image stream is kept as contiguous (B, h*w, C) token
+rows: ``ops/sam_decoder.py`` makes them (``stream_init``), runs both
+cross-attentions between the projections (``t2i_attend``, ``i2t_attend``)
+and the residual norm (``residual_ln``), hand-written kernels on the card
+and upstream's formula on the CPU. ``keys + key_pe`` is made once after
+each change of the keys (upstream recomputes it for every attention that
+reads it): the same values.
+
 Modules are named after the released keys under ``prompt_encoder.`` and
 ``mask_decoder.``. Every operation has a fixed shape and no host
 synchronisation (labels select embeddings through ``torch.where``), so a
@@ -24,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..attention import attend
+from ...ops import sam_decoder
 from .image_encoder import LayerNorm2d
 
 
@@ -78,9 +86,10 @@ class PromptEncoder(nn.Module):
         pe = pe + torch.where(lab == 0, self.point_embeddings[0].weight, 0.0)
         return pe + torch.where(lab == 1, self.point_embeddings[1].weight, 0.0)
 
-    def dense(self, B: int):
-        return self.no_mask_embed.weight.reshape(1, -1, 1, 1).expand(
-            B, -1, self.grid, self.grid)
+    def dense(self):
+        """(C,): the dense prompt without a mask input, the same at every
+        cell of the grid (upstream expands it to (B, C, h, w))."""
+        return self.no_mask_embed.weight[0]
 
     def image_pe(self):
         return self.pe_layer.grid(self.grid, self.grid)[None]
@@ -99,10 +108,13 @@ class DecoderAttention(nn.Module):
         self.v_proj = nn.Linear(dim, inner)
         self.out_proj = nn.Linear(inner, dim)
 
-    def forward(self, q, k, v):
-        split = lambda t: t.reshape(t.shape[0], t.shape[1], self.heads, -1)
-        return self.out_proj(attend(split(self.q_proj(q)), split(self.k_proj(k)),
-                                    split(self.v_proj(v))))
+    def forward(self, q, k, v, attend_fn=sam_decoder.cross_attend_plain):
+        """out_proj(attend_fn(q_proj(q), k_proj(k), v_proj(v), heads)): the
+        attention on the merged-head projections; the image stream's
+        kernels take the cross attentions, the tokens' self-attention the
+        plain version."""
+        return self.out_proj(attend_fn(self.q_proj(q), self.k_proj(k), self.v_proj(v),
+                                       self.heads))
 
 
 class TokenMLP(nn.Module):
@@ -120,7 +132,9 @@ class TokenMLP(nn.Module):
 class TwoWayAttentionBlock(nn.Module):
     """Self-attention of the tokens, tokens to image, MLP, image to tokens;
     a post-norm after each (LayerNorm eps 1e-5). The first block's
-    self-attention replaces the tokens, without their PE or a residual."""
+    self-attention replaces the tokens, without their PE or a residual.
+    The image stream comes in and goes out as keys and kpe = keys + key_pe
+    (B, N, C)."""
 
     def __init__(self, dim: int, heads: int, mlp_dim: int, downsample_rate: int,
                  skip_first_layer_pe: bool):
@@ -135,19 +149,21 @@ class TwoWayAttentionBlock(nn.Module):
         self.norm4 = nn.LayerNorm(dim)
         self.cross_attn_image_to_token = DecoderAttention(dim, heads, downsample_rate)
 
-    def forward(self, queries, keys, query_pe, key_pe):
+    def forward(self, queries, keys, kpe, query_pe, key_pe):
         if self.skip_first_layer_pe:
             queries = self.self_attn(queries, queries, queries)
         else:
             q = queries + query_pe
             queries = queries + self.self_attn(q, q, queries)
         queries = self.norm1(queries)
-        q, k = queries + query_pe, keys + key_pe
-        queries = self.norm2(queries + self.cross_attn_token_to_image(q, k, keys))
+        queries = self.norm2(queries + self.cross_attn_token_to_image(
+            queries + query_pe, kpe, keys, sam_decoder.t2i_attend))
         queries = self.norm3(queries + self.mlp(queries))
-        q, k = queries + query_pe, keys + key_pe
-        keys = self.norm4(keys + self.cross_attn_image_to_token(k, q, queries))
-        return queries, keys
+        out = self.cross_attn_image_to_token(kpe, queries + query_pe, queries,
+                                             sam_decoder.i2t_attend)
+        n = self.norm4
+        keys, kpe = sam_decoder.residual_ln(keys, out, n.weight, n.bias, n.eps, key_pe)
+        return queries, keys, kpe
 
 
 class TwoWayTransformer(nn.Module):
@@ -159,16 +175,18 @@ class TwoWayTransformer(nn.Module):
         self.final_attn_token_to_image = DecoderAttention(dim, heads, downsample_rate)
         self.norm_final_attn = nn.LayerNorm(dim)
 
-    def forward(self, image, image_pe, tokens):
-        """image, image_pe (B, C, h, w); tokens (B, T, C) -> (tokens,
-        image as (B, h*w, C))."""
-        keys = image.flatten(2).permute(0, 2, 1)
-        key_pe = image_pe.flatten(2).permute(0, 2, 1)
+    def forward(self, image, image_pe, tokens, dense):
+        """image, image_pe (1, C, h, w); tokens (B, T, C); dense (C,), added
+        to the image at every cell -> (tokens, image as (B, h*w, C))."""
+        # (N, C) token rows: the prompt encoder's grid PE is laid out so
+        # already, and is not copied
+        key_pe = image_pe[0].flatten(1).t().contiguous()
+        keys, kpe = sam_decoder.stream_init(image, dense, key_pe, tokens.shape[0])
         queries = tokens
         for layer in self.layers:
-            queries, keys = layer(queries, keys, tokens, key_pe)
-        q, k = queries + tokens, keys + key_pe
-        queries = self.norm_final_attn(queries + self.final_attn_token_to_image(q, k, keys))
+            queries, keys, kpe = layer(queries, keys, kpe, tokens, key_pe)
+        queries = self.norm_final_attn(queries + self.final_attn_token_to_image(
+            queries + tokens, kpe, keys, sam_decoder.t2i_attend))
         return queries, keys
 
 
@@ -207,14 +225,12 @@ class MaskDecoder(nn.Module):
 
     def forward(self, image_embedding, image_pe, sparse, dense):
         """image_embedding, image_pe (1, C, h, w); sparse (B, N, C); dense
-        (B, C, h, w) -> all masks (B, 4, 4h, 4w) and IoUs (B, 4)."""
+        (C,) -> all masks (B, 4, 4h, 4w) and IoUs (B, 4)."""
         B = sparse.shape[0]
         out_tokens = torch.cat([self.iou_token.weight, self.mask_tokens.weight], dim=0)
         tokens = torch.cat([out_tokens[None].expand(B, -1, -1), sparse], dim=1)
-        src = image_embedding.expand(B, -1, -1, -1) + dense
-        pos = image_pe.expand(B, -1, -1, -1)
-        _, c, h, w = src.shape
-        hs, src = self.transformer(src, pos, tokens)
+        _, c, h, w = image_embedding.shape
+        hs, src = self.transformer(image_embedding, image_pe, tokens, dense)
         mask_out = hs[:, 1:1 + self.num_mask_tokens]
         up = self.output_upscaling(src.transpose(1, 2).reshape(B, c, h, w))
         hyper = torch.stack([mlp(mask_out[:, i])

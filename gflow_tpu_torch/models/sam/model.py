@@ -100,6 +100,5 @@ class SamModel(nn.Module):
         with fp32_math():
             pe = self.prompt_encoder
             sparse = pe.sparse(points, labels)
-            masks, iou = self.mask_decoder(embedding, pe.image_pe(), sparse,
-                                           pe.dense(points.shape[0]))
+            masks, iou = self.mask_decoder(embedding, pe.image_pe(), sparse, pe.dense())
             return masks[:, 1:], iou[:, 1:]

@@ -8,10 +8,10 @@ and an unchanged one is reused. ``build_all`` starts one ``nvcc`` per
 source, all together.
 
 Every C entry point takes its tensors as raw device pointers (an optional
-one may be 0, a null pointer) plus the current CUDA stream of their
-device, launches, and returns ``cudaGetLastError()``;
-``launch`` raises when that is nonzero and counts the launch in
-``LAUNCHES``. A launch made while a CUDA graph is recorded runs only when
+one may be 0, a null pointer), ints as C ints and floats as C floats,
+plus the current CUDA stream of their device, launches, and returns
+``cudaGetLastError()``; ``launch`` raises when that is nonzero and counts
+the launch in ``LAUNCHES``. A launch made while a CUDA graph is recorded runs only when
 the graph is replayed: inside ``recording()`` it goes to the recording's
 log instead, and ``replay_launches`` counts the log at every replay.
 ``-Xptxas -v`` makes each build report its kernels'
@@ -37,7 +37,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # kernel name -> (source file, C symbol, argument types before the stream)
 KERNELS = {
     "composite_fwd": ("composite.cu", "gflow_composite_fwd",
@@ -51,6 +51,13 @@ KERNELS = {
     "stamp": ("stamp.cu", "gflow_stamp", (_P, _P, _I, _I, _I)),
     "ssim_fwd": ("ssim.cu", "gflow_ssim_fwd", (_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P)),
     "ssim_bwd": ("ssim.cu", "gflow_ssim_bwd", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "sam_stream_init": ("sam_decoder.cu", "gflow_sam_stream_init",
+                        (_P, _P, _P, _I, _I, _I, _P, _P)),
+    "sam_t2i_attend": ("sam_decoder.cu", "gflow_sam_t2i_attend",
+                       (_P, _P, _P, _I, _I, _I, _P, _P, _P)),
+    "sam_i2t_attend": ("sam_decoder.cu", "gflow_sam_i2t_attend", (_P, _P, _P, _I, _I, _I, _P)),
+    "sam_residual_ln": ("sam_decoder.cu", "gflow_sam_residual_ln",
+                        (_P, _P, _P, _P, _P, _I, _I, _F, _P, _P)),
 }
 
 # launches per kernel name since the last reset (``LAUNCHES.clear()``):
@@ -131,18 +138,26 @@ def _function(name: str):
 def launch(name: str, *args) -> None:
     """Launch kernel `name` on the current CUDA stream of the device its
     tensor arguments live on (which need not be the current device). Tensor
-    arguments go as device pointers, ints as C ints; the caller has checked
-    shapes, dtypes and contiguity. Raises if the tensors span devices or on
-    a nonzero CUDA error code."""
+    arguments go as device pointers, ints as C ints, floats as C floats; the
+    caller has checked shapes, dtypes and contiguity. Raises if the tensors
+    span devices or on a nonzero CUDA error code."""
     dev = tensor_device(args)
     fn = _function(name)
-    cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a) for a in args]
+    cargs = [_c_arg(a) for a in args]
     with torch.cuda.device(dev):
         rc = fn(*cargs, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch on {dev}: cudaError {rc}")
-    count_launch(name, tuple(tuple(a.shape) if isinstance(a, torch.Tensor) else int(a)
-                             for a in args))
+    count_launch(name, tuple(tuple(a.shape) if isinstance(a, torch.Tensor) else c
+                             for a, c in zip(args, cargs)))
+
+
+def _c_arg(a):
+    """A launch argument as ctypes takes it: a tensor's device pointer, a
+    float as it is (a C float), anything else as an int."""
+    if isinstance(a, torch.Tensor):
+        return a.data_ptr()
+    return a if isinstance(a, float) else int(a)
 
 
 def count_launch(name: str, args: tuple) -> None:

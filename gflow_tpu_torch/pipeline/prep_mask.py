@@ -43,7 +43,10 @@ of ``mask/encode``, ``mask/decode`` (the batches' graph replays) and
 ``mask/post`` (their logits to the frame's size, stability and binarize),
 from stamps on the card's timer (``ops/stamp.py``); and the counters
 ``mask/prompts``, ``mask/kept_iou``, ``mask/kept_stability`` (kept by
-both filters), ``mask/kept_nms`` and ``mask/kept_union``.
+both filters), ``mask/kept_nms``, ``mask/kept_union`` and
+``mask/decoder_fused_batches``: the batches whose decode ran the
+decoder's image stream through its kernels (``ops/sam_decoder.py``; one
+``sam_stream_init`` launch a batch, 0 on the CPU).
 """
 from __future__ import annotations
 
@@ -56,6 +59,7 @@ import torch
 from .. import resolve_device
 from ..core.io import imread, imwrite
 from ..models.sam import SamModel, convert, input_size, postprocess_masks
+from ..ops import _build
 from ..ops.stamp import stamp
 from ..opt import graphs
 from ..utils import profiling
@@ -249,6 +253,7 @@ def _main(img_dir, checkpoint, device, model, params, g):
         iou_all = torch.empty(len(pts) * 3, device=dev)
         kept_iou = torch.empty(len(pts) * 3, dtype=torch.bool, device=dev)
         kept = torch.empty(len(pts) * 3, dtype=torch.bool, device=dev)
+        fused = _build.LAUNCHES["sam_stream_init"]
         with torch.inference_mode():
             stamp(rows[:1], table, 0)
             emb = encode(model, frame, dev)
@@ -272,7 +277,8 @@ def _main(img_dir, checkpoint, device, model, params, g):
         tel.add("mask/encode", float(t[0, 1] - t[0, 0]) * 1e-9)
         tel.add("mask/decode", float((t[1:, 1] - t[1:, 0]).sum()) * 1e-9, nb)
         tel.add("mask/post", float((t[1:, 2] - t[1:, 1]).sum()) * 1e-9, nb)
-        counts = {"prompts": len(pts), "kept_iou": int(kept_iou.sum()), **selected}
+        counts = {"prompts": len(pts), "kept_iou": int(kept_iou.sum()), **selected,
+                  "decoder_fused_batches": _build.LAUNCHES["sam_stream_init"] - fused}
         for k, v in counts.items():
             tel.count("mask/" + k, v)
         print_color(f"[sam] {name}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))

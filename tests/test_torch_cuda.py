@@ -26,7 +26,12 @@ three channels: the mean within 1e-6 absolute, bitwise repeatable;
 dL/dimg1 within 1e-5 of its largest entry (assert_ssim_grads_close); the
 camera-only masked input and a channel slice read in place; under no_grad
 no coefficient maps; a captured call replays exactly as the eager one; in
-a stamped stage ssim_bwd once an iteration."""
+a stamped stage ssim_bwd once an iteration. SAM's mask decoder's
+image-stream kernels (ops/sam_decoder.py) against their plain versions at
+the automatic grid's shapes and at ragged key counts and 1 to 8 tokens
+(stream_init bitwise, the rest within 1e-5 of the largest value); a
+64-prompt decode graphed equals it eager, with 1 + 3 + 2 + 2 launches,
+and the CPU's to 1e-4."""
 import contextlib
 
 import numpy as np
@@ -1284,3 +1289,111 @@ def test_ssim_kernels_once_per_iteration(dev, path):
     assert _build.LAUNCHES["ssim_bwd"] == coef.count(True) == iters
     # lean: the error densify's forward and the final one; camera: the final one
     assert coef.count(False) == (2 if path == "lean" else 1)
+
+
+# SAM's mask decoder: the image stream's kernels (ops/sam_decoder.py,
+# csrc/sam_decoder.cu) at the automatic grid's shapes: 64 prompts (and 1),
+# a 64 x 64 grid of 256 channels, 7 tokens, cross attention 8 heads of 16.
+# stream_init's adds are the plain version's bitwise; the attentions and the
+# norm sum in another order (shuffle trees, the online softmax over chunks),
+# ~1e-7 relative a sum, so 1e-5 of the largest value, which a wrong head,
+# token, row or chunk misses by orders of magnitude.
+SAM_RTOL = 1e-5
+
+
+def sam_rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def sam_stream_inputs(dev, B, grid=64, T=7, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=dev) * scale
+    N = grid * grid
+    return dict(image=r(1, 256, grid, grid), dense=r(256), pe=r(N, 256),
+                q_t=r(B, T, 128, scale=2.0), k_n=r(B, N, 128), v_n=r(B, N, 128),
+                q_n=r(B, N, 128, scale=2.0), k_t=r(B, T, 128), v_t=r(B, T, 128),
+                keys=r(B, N, 256), out=r(B, N, 256), w=r(256), b=r(256))
+
+
+@pytest.mark.parametrize("B", [1, 64])
+def test_sam_decoder_kernels_match_plain(dev, B):
+    """Each kernel against its plain version on the card; the attentions
+    and the norm bitwise repeatable (no atomics)."""
+    from gflow_tpu_torch.ops import sam_decoder as sd
+
+    x = sam_stream_inputs(dev, B)
+    keys, kpe = sd.stream_init(x["image"], x["dense"], x["pe"], B)
+    want_keys, want_kpe = sd.stream_init_plain(x["image"], x["dense"], x["pe"], B)
+    assert keys.is_contiguous() and kpe.is_contiguous()
+    assert torch.equal(keys, want_keys) and torch.equal(kpe, want_kpe)
+    for fn, args in ((sd.t2i_attend, (x["q_t"], x["k_n"], x["v_n"])),
+                     (sd.i2t_attend, (x["q_n"], x["k_t"], x["v_t"]))):
+        got = fn(*args, 8)
+        want = sd.cross_attend_plain(*args, 8)
+        assert got.shape == want.shape and sam_rel(got, want) <= SAM_RTOL, fn.__name__
+        assert torch.equal(got, fn(*args, 8)), fn.__name__
+    got = sd.residual_ln(x["keys"], x["out"], x["w"], x["b"], 1e-5, x["pe"])
+    want = sd.residual_ln_plain(x["keys"], x["out"], x["w"], x["b"], 1e-5, x["pe"])
+    for a, b in zip(got, want):
+        assert sam_rel(a, b) <= SAM_RTOL
+    torch.cuda.synchronize()
+
+
+def test_sam_t2i_over_ragged_chunks_and_every_token_count(dev):
+    """Token to image over N that no chunk divides (a chunk and a warp
+    with few or no keys) and 1 to 8 tokens; image to token the same."""
+    from gflow_tpu_torch.ops import sam_decoder as sd
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    for N in (1, 37, 300, 4100):
+        for T in range(1, 9):
+            q = torch.randn(3, T, 128, generator=g, device=dev) * 2
+            k, v = (torch.randn(3, N, 128, generator=g, device=dev) for _ in range(2))
+            got = sd.t2i_attend(q, k, v, 8)
+            assert sam_rel(got, sd.cross_attend_plain(q, k, v, 8)) <= SAM_RTOL, (N, T)
+            got = sd.i2t_attend(k, q, q * 0.5, 8)
+            assert sam_rel(got, sd.cross_attend_plain(k, q, q * 0.5, 8)) <= SAM_RTOL, (N, T)
+    torch.cuda.synchronize()
+
+
+def sam_decoder_model(dev, scale=1.0, seed=0):
+    """SAM with its released decoder (256 wide, 8 heads, cross attention at
+    128) over a 64 x 64 grid, a 2-block 64-wide encoder (never run here)."""
+    from gflow_tpu_torch.models.random_weights import seeded_state_dict
+    from gflow_tpu_torch.models.sam import SamConfig, SamModel, convert
+
+    cfg = SamConfig(encoder_embed_dim=64, encoder_depth=2, encoder_num_heads=4,
+                    encoder_global_attn_indexes=(1,))
+    sd = seeded_state_dict(convert.expected_torch_keys(cfg), seed, scale)
+    key = "prompt_encoder.pe_layer.positional_encoding_gaussian_matrix"
+    sd[key] = torch.randn(sd[key].shape, generator=torch.Generator().manual_seed(seed + 1))
+    model = SamModel(cfg)
+    model.load_state_dict(sd, strict=True)
+    return model.eval().to(dev)
+
+
+def test_sam_decode_graphed_equals_eager_and_the_cpu(dev):
+    """A 64-prompt decode (prep_mask.decode) recorded as a CUDA graph
+    replays equal to the same decode eager, with 1 stream_init, 3
+    token-to-image, 2 image-to-token and 2 residual-norm launches a decode;
+    its logits and IoUs are the CPU's plain decode's to 1e-4 of the
+    largest (the fp32 GEMMs and the upscaler on the card sum in other
+    orders than the CPU's too)."""
+    from gflow_tpu_torch.pipeline import prep_mask
+
+    model = sam_decoder_model(dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    emb = torch.randn(1, 256, 64, 64, generator=g, device=dev)
+    pts = torch.rand(64, 2, generator=g, device=dev) * 1024
+    with torch.inference_mode():
+        graph_vs_eager(lambda: prep_mask.decode(model, emb, pts, dev),
+                       launched=("sam_stream_init", "sam_t2i_attend", "sam_i2t_attend",
+                                 "sam_residual_ln"))
+        _build.LAUNCHES.clear()
+        low, iou = prep_mask.decode(model, emb, pts, dev)
+        torch.cuda.synchronize()
+        assert dict(_build.LAUNCHES) == {"sam_stream_init": 1, "sam_t2i_attend": 3,
+                                         "sam_i2t_attend": 2, "sam_residual_ln": 2}
+        cpu = model.to("cpu")
+        want_low, want_iou = prep_mask.decode(cpu, emb.cpu(), pts[:8].cpu(), torch.device("cpu"))
+    assert sam_rel(low[:8].cpu(), want_low) <= 1e-4 and sam_rel(iou[:8].cpu(), want_iou) <= 1e-4

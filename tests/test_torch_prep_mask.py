@@ -170,6 +170,14 @@ def test_writes_one_mask_a_frame(masked):
     assert counts["mask/kept_union"] > 0 and counts["mask/kept_stability"] > 3
 
 
+def test_no_batch_counts_as_fused_on_the_cpu(masked):
+    """mask/decoder_fused_batches counts the batches whose decode launched
+    the decoder's image-stream kernels: none on the CPU, where the plain
+    versions run."""
+    counts = masked[3]
+    assert counts["mask/decoder_fused_batches"] == 0
+
+
 def test_written_masks_are_the_reference_generators(masked):
     """The reference's filters, NMS and union on the same decoder outputs
     give the written masks, pixel for pixel."""

@@ -115,7 +115,7 @@ def _align_loss(poses, scales, ei, ej, src, dst, cw):
     return torch.sum(cw * torch.sum(d * d, -1)) / torch.sum(cw)
 
 
-class _RefineBuffers:
+class _RefineBuffers(graphs.Buffers):
     """The refinement's state at fixed addresses: what the loop carries
     (``CARRIED``: poses (T, 7), log-scales (T,), Adam's moments of both and
     the step counter ``t``, a 0-d int64) and its inputs (the stage's lr and
@@ -123,9 +123,6 @@ class _RefineBuffers:
     the edges). Every step updates them in place, eager or replayed."""
 
     CARRIED = ("poses", "scales", "m_p", "v_p", "m_s", "v_s", "t")
-
-    def __init__(self, **fields):
-        self.__dict__.update(fields)
 
     @classmethod
     def of(cls, poses, scales, edges, dev) -> "_RefineBuffers":
@@ -149,11 +146,6 @@ class _RefineBuffers:
         self.steps.fill_(max(steps, 1))
         self.group.fill_(t_scale)
         self.group.narrow(0, 0, 4).fill_(ROT_SCALE)
-
-    def scratch(self) -> "_RefineBuffers":
-        """A copy whose carried tensors are clones (a graph's warm-up)."""
-        return _RefineBuffers(**{k: v.clone() if k in self.CARRIED else v
-                                 for k, v in vars(self).items()})
 
 
 def lr_and_bias(t, lr, steps, b1: float = 0.9, b2: float = 0.999):

@@ -49,8 +49,7 @@ Adam steps on fixed buffers (``models/mast3r/alignment.py``).
 - Launch accounting: a capture logs its kernel launches instead of
   counting them (``_build.recording``), and every replay counts the log
   into ``_build.LAUNCHES``; the warm-up's launches, on scratch data, are
-  kept apart (``CapturedGraph.warmup_launches``). ``REPLAYS`` counts the
-  replays per graph name.
+  not counted. ``REPLAYS`` counts the replays per graph name.
 - ``disable_graphs()``, the counterpart of ``jax.disable_jit()``, runs
   stages and forward functions eagerly on the card, for comparison runs.
   Nothing falls back to it: a capture or a replay that fails raises.
@@ -65,7 +64,6 @@ from __future__ import annotations
 import collections
 import contextlib
 import itertools
-import time
 
 import torch
 
@@ -201,9 +199,7 @@ class CapturedGraph:
     `pool` is the memory pool of `dev` that the capture allocates from
     (None: a pool of its own). ``outputs`` is what fn returned under
     capture, rewritten by every ``replay()``; ``launches`` the kernel
-    launches of one replay; ``capture_s`` and ``instantiate_s`` the seconds
-    of the capture and of its instantiation. The captured graph is kept
-    (``graph.raw_cuda_graph()`` for a node count)."""
+    launches of one replay."""
 
     def __init__(self, fn, buffers, dev: torch.device, devices=(), pool=None):
         self.dev = dev = _indexed(dev)
@@ -212,8 +208,7 @@ class CapturedGraph:
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             # the warm-up may synchronise (a constant's first copy to the card)
-            with torch.cuda.stream(side), _build.recording() as self.warmup_launches, \
-                    sync_check(dev, "default"):
+            with torch.cuda.stream(side), _build.recording(), sync_check(dev, "default"):
                 scratch = buffers.scratch()
                 for _ in range(WARMUP):
                     fn(scratch)
@@ -224,8 +219,7 @@ class CapturedGraph:
             for d in others:
                 with torch.cuda.device(d):
                     self.pools[d] = torch.cuda.MemPool()
-            self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-            t0 = time.perf_counter()
+            self.graph = torch.cuda.CUDAGraph()
             # capture_begin itself, not torch.cuda.graph: that one also
             # synchronises and empties the allocator's cache, which the
             # next eager calls would pay for
@@ -253,9 +247,6 @@ class CapturedGraph:
                     self.outputs = fn(buffers)
                 for s in joined:
                     home.wait_stream(s)
-            t1 = time.perf_counter()
-            self.graph.instantiate()
-            self.capture_s, self.instantiate_s = t1 - t0, time.perf_counter() - t1
 
     def replay(self) -> None:
         with torch.cuda.device(self.dev):
@@ -323,20 +314,35 @@ class GraphCache:
         return entry
 
 
-class ForwardBuffers:
+class Buffers:
+    """Tensors at addresses that stay put for the graphs recorded on them,
+    by field: what a loop carries from one replay to the next (``CARRIED``,
+    field names) and what it only reads."""
+
+    CARRIED: tuple = ()
+
+    def __init__(self, **fields):
+        self.__dict__.update(fields)
+
+    def scratch(self) -> "Buffers":
+        """A copy whose carried tensors are clones (a graph's warm-up)."""
+        return type(self)(**{k: tree_map(torch.clone, v) if k in self.CARRIED else v
+                             for k, v in vars(self).items()})
+
+
+class ForwardBuffers(Buffers):
     """The static inputs of a forward graph: copies on the card of one
     call's input tensors, into which each call's inputs are loaded (host
-    tensors through pinned memory, without blocking the host)."""
+    tensors through pinned memory, without blocking the host). A forward
+    function reads its inputs only: it carries nothing."""
 
-    def __init__(self, inputs: dict, dev: torch.device):
-        self.inputs = tree_map(
-            lambda x: _staged(x, dev).to(dev, copy=True, non_blocking=True), inputs)
+    @classmethod
+    def of(cls, inputs: dict, dev: torch.device) -> "ForwardBuffers":
+        return cls(inputs=tree_map(
+            lambda x: _staged(x, dev).to(dev, copy=True, non_blocking=True), inputs))
 
     def load(self, inputs: dict) -> None:
         copy_into(self.inputs, inputs)
-
-    def scratch(self) -> "ForwardBuffers":
-        return self  # a forward function reads its inputs only
 
 
 class ForwardCache(GraphCache):
@@ -380,7 +386,7 @@ class ForwardCache(GraphCache):
         shapes = tuple(tree_map(lambda x: (tuple(x.shape), x.dtype), v)
                        for v in inputs.values())
         key = (key, tuple(inputs), shapes, _indexed(dev), recording_context())
-        entry = self.entry(key, lambda: ForwardBuffers(inputs, dev), dev, devices)
+        entry = self.entry(key, lambda: ForwardBuffers.of(inputs, dev), dev, devices)
         entry.buffers.load(inputs)
         with sync_check(dev):
             out = entry(self.name, lambda b: fn(**b.inputs))

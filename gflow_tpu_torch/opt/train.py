@@ -297,7 +297,7 @@ def _to(tup, dev):
     return type(tup)(*(x.to(dev) for x in tup))
 
 
-class _StageBuffers:
+class _StageBuffers(stage_graphs.Buffers):
     """Every tensor an iteration reads or writes, at addresses that stay put
     for a CUDA graph: what the loop carries (``CARRIED``: the parameters,
     Adam's moments and step, n_alive, the iteration counter ``it`` (1,)
@@ -308,9 +308,6 @@ class _StageBuffers:
     eager or replayed."""
 
     CARRIED = ("params", "opt", "n_alive", "it", "losses", "bins", "stamps")
-
-    def __init__(self, **fields):
-        self.__dict__.update(fields)
 
     @classmethod
     def of(cls, inputs: dict, cfg: StageConfig) -> "_StageBuffers":
@@ -343,11 +340,6 @@ class _StageBuffers:
         for t in (*self.opt.m, *self.opt.v, self.opt.step, self.it, self.losses, self.stamps):
             if t is not None:
                 t.zero_()
-
-    def scratch(self) -> "_StageBuffers":
-        """A copy whose carried tensors are clones (a graph's warm-up)."""
-        return _StageBuffers(**{k: tree_map(torch.clone, v) if k in self.CARRIED else v
-                                for k, v in vars(self).items()})
 
 
 def _iteration(buf: _StageBuffers, cfg: StageConfig, weights: LossWeights):

@@ -160,12 +160,35 @@ def compare_tails(builds, stream, K, where):
     return row
 
 
+def device_profile(fn, n=20):
+    """Device kernels and device ms per call of fn(), from torch.profiler
+    over n calls after one warm-up call (device rows only, since an
+    operator's row repeats its kernels' time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if not rows:
+        return {"kernels_per_call": "not measured", "device_ms_per_call": "not measured"}
+    return {"kernels_per_call": sum(r[1] for r in rows) / n,
+            "device_ms_per_call": sum(r[0] for r in rows) / 1e3 / n,
+            "kernels": [{"name": k[:90], "calls": c / n, "ms": us / 1e3 / n}
+                        for us, c, k in sorted(rows, reverse=True)]}
+
+
 def compare_layer(builds, bin_call, stage):
     args, kw = bin_call
     row = dict(row="binning layer", input=f"main {stage}", K=kw["max_per_tile"])
     for tag in TURNS:
         with mock.patch.object(binning, "bin_tail", builds[tag][0]):
-            prof = cs.device_profile(lambda: binning.bin_gaussians(*args, **kw))
+            prof = device_profile(lambda: binning.bin_gaussians(*args, **kw))
             call_ms = cs.cuda_ms(lambda: binning.bin_gaussians(*args, **kw))
         for k in ("kernels_per_call", "device_ms_per_call"):
             row.setdefault(f"{tag}_{k}", []).append(prof[k])

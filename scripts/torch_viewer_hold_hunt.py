@@ -87,7 +87,7 @@ def main():
         sys.exit("torch_viewer_hold_hunt: needs a CUDA device")
     from gflow_tpu_torch.viz.viewer import ViewerState
 
-    smi = cs.SMI = card()
+    smi = card()
     print(smi, flush=True)
     root = os.path.join(cs.FIT_DIR, "hunt")
     shutil.rmtree(cs.HOLD_FAILURES, ignore_errors=True)

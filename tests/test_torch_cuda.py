@@ -575,21 +575,25 @@ def test_sharded_batch_apply_over_two_cards(dev):
 
 
 @pytest.mark.parametrize("with_cov", [False, True])
-def test_band_compositor_matches_unbanded_kernel(dev, with_cov):
+@pytest.mark.parametrize("Wd,Hd,n", [(80, 48, 300), (854, 480, 32_000)],
+                         ids=["80x48", "854x480"])
+def test_band_compositor_matches_unbanded_kernel(dev, with_cov, Wd, Hd, n):
     """The band wrappers on 4 bands (over the visible cards, round robin)
     against the unbanded kernel call on the same per-Gaussian inputs, at
-    80x48 (3 tile rows: the fourth band is padding): images and coverage
-    atol 5e-4 / rtol 1e-3, gradients normalized by max |ref| 5e-4; K1 or
-    K2 and K3 launch once per band."""
+    80x48 (3 tile rows: the fourth band is padding) and at the fit's
+    854x480 (30 tile rows padded to 32: 8 a band, the last with 2 of
+    padding), the focal length and the point count scaled with the width
+    and the area: images and coverage atol 5e-4 / rtol 1e-3, gradients
+    normalized by max |ref| 5e-4; K1 or K2 and K3 launch once per band."""
     from gflow_tpu_torch.ops.binning import bin_gaussians, tile_grid
     from gflow_tpu_torch.ops.projection import project_gaussians
 
-    Wd, Hd, n = 80, 48, 300
     rng = np.random.default_rng(5)
     t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
     xyz = t(np.c_[rng.uniform(-1, 1, (n, 2)), rng.uniform(2, 6, (n, 1))])
+    f = Wd / 2
     proj = project_gaussians(xyz, t(rng.uniform(0.02, 0.1, (n, 3))), t(rng.normal(size=(n, 4))),
-                             t([40.0, 40.0, Wd / 2, Hd / 2]), torch.eye(3, 4, device=dev), Wd, Hd)
+                             t([f, f, Wd / 2, Hd / 2]), torch.eye(3, 4, device=dev), Wd, Hd)
     bins = bin_gaussians(proj["uv"], proj["depth"], proj["radius"], Wd, Hd, 64, 16)
     n_tx, n_ty = tile_grid(Wd, Hd)
     base = [proj["uv"], proj["conic"], t(rng.uniform(0.2, 0.9, (n, 1))), t(rng.uniform(0, 1, (n, 3)))]
@@ -658,6 +662,9 @@ GRAPH_PATHS = {
     "snapshot": dict(snapshot_every=3, densify_occ=True, densify_interval=4, densify_times=1,
                      max_densify=64),
     "camera": dict(camera_only=True),
+    # the lean path at the K the fit escalates to (the fit cell's K)
+    "lean_k192": dict(densify_occ=True, densify_interval=4, densify_times=1, max_densify=64,
+                      max_per_tile=192),
 }
 
 
@@ -667,9 +674,11 @@ def graph_stage(dev, path, graphs, seed=0, stamps=False):
     from gflow_tpu_torch.opt.train import StageConfig, StageDynamics, train_stage
 
     params, state, targets, intr = graph_stage_inputs(dev, seed)
+    kw = dict(GRAPH_PATHS[path])
+    K = kw.pop("max_per_tile", 64)
     cfg = StageConfig(W=96, H=64, iterations=8, telemetry_t_final=path == "lean",
-                      render=RenderConfig(max_per_tile=64, max_tiles_per_gaussian=16),
-                      stamps=stamps, **GRAPH_PATHS[path])
+                      render=RenderConfig(max_per_tile=K, max_tiles_per_gaussian=16),
+                      stamps=stamps, **kw)
     dyn = StageDynamics(lr=1e-2, lr_camera=1e-3, num_points=800, densify_occ_percent=0.5,
                         weights=LossWeights(rgb=1.0, depth=0.1, var=50.0))
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -856,21 +865,25 @@ def test_graphed_renders_equal_eager(dev):
                             tr.render_views()))
 
 
-def test_two_class_render_captures_under_sync_check(dev):
+@pytest.mark.parametrize("Wd,Hd,n", [(320, 192, 3000), (854, 480, 20_000)],
+                         ids=["320x192", "854x480"])
+def test_two_class_render_captures_under_sync_check(dev, Wd, Hd, n):
     """The benchmark's tracking render after two-class binning (M = 48,
     small grid 8, K = 128) records and replays as a CUDA graph with every
-    synchronising call an error, and equals the eager render."""
+    synchronising call an error, and equals the eager render; at 320x192
+    and at the eval's 854x480 (the focal length and the point count scaled
+    with the width and the area)."""
     from gflow_tpu_torch.ops.render import RenderConfig, render_jit
 
     rng = np.random.default_rng(13)
-    n, Wd, Hd = 3000, 320, 192
     z = rng.uniform(2, 5, n)
     big = rng.uniform(size=(n, 1)) < 0.05
+    f = 0.75 * Wd
     t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
     arrays = (t(np.c_[rng.uniform(-0.8, 0.8, (n, 2)) * z[:, None], z]),
               t(rng.uniform(0.01, 0.04, (n, 3)) * np.where(big, 8.0, 1.0)),
               t(rng.normal(size=(n, 4))), t(rng.uniform(0.3, 0.95, (n, 1))),
-              t(rng.uniform(0, 1, (n, 3))), t([240.0, 240.0, Wd / 2, Hd / 2]),
+              t(rng.uniform(0, 1, (n, 3))), t([f, f, Wd / 2, Hd / 2]),
               torch.eye(3, 4, device=dev))
     cfg = RenderConfig(max_per_tile=128, max_tiles_per_gaussian=48, small_tiles_per_gaussian=8)
     call = lambda: render_jit(*arrays, 0.0, Wd, Hd, ("uv", "depth", "depth_map", "acc"), cfg)

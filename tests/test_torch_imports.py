@@ -62,3 +62,49 @@ def test_port_has_the_slice_modules():
                 "models/sam/image_encoder.py", "models/sam/decoder.py", "models/sam/model.py",
                 "models/sam/convert.py", "pipeline/prep_mask.py", "cli/prep_mask.py"):
         assert f"gflow_tpu_torch/{mod}" in names, mod
+
+
+CHIP_SMOKE = ROOT / "chip_smoke.py"
+# the tools that may import chip_smoke.py: its A/B and replay scripts and the port's tests
+TOOL_FILES = [p for p in sorted((ROOT / "scripts").glob("torch_*.py"))
+              + sorted((ROOT / "tests").glob("test_torch_*.py"))
+              if "chip_smoke" in p.read_text()]
+
+
+def module_level_names(path: Path) -> set:
+    """The names `path` binds at module level: functions, classes, the
+    targets of assignments and imports."""
+    names = set()
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            for target in getattr(node, "targets", [getattr(node, "target", None)]):
+                names.update(n.id for n in ast.walk(target) if isinstance(n, ast.Name))
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0] for a in node.names)
+    return names
+
+
+def chip_smoke_uses(path: Path) -> set:
+    """The names `path` reads off chip_smoke: `<alias>.<name>` where
+    `import chip_smoke [as alias]`, and `from chip_smoke import <name>`."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    aliases, names = set(), set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            aliases.update(a.asname or a.name for a in node.names if a.name == "chip_smoke")
+        elif isinstance(node, ast.ImportFrom) and node.module == "chip_smoke":
+            names.update(a.name for a in node.names)
+    names.update(node.attr for node in ast.walk(tree) if isinstance(node, ast.Attribute)
+                 and isinstance(node.value, ast.Name) and node.value.id in aliases)
+    return names
+
+
+@pytest.mark.parametrize("path", TOOL_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_tools_use_only_what_chip_smoke_defines(path):
+    """Every name a script or test reads off chip_smoke.py is bound there,
+    read through ast without importing chip_smoke: a deletion from it that
+    strands a tool fails here, on the CPU."""
+    missing = chip_smoke_uses(path) - module_level_names(CHIP_SMOKE)
+    assert not missing, f"{path.relative_to(ROOT)} uses chip_smoke's {sorted(missing)}"

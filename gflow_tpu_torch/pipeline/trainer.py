@@ -50,7 +50,7 @@ from ..opt.graphs import ForwardCache, GraphCache
 from ..opt.losses import LossWeights
 from ..opt.state import Params, Targets, init_frame_state
 from ..opt.train import StageConfig, StageDynamics, train_stage
-from ..utils.bgwriter import flush_writes, get_writer, writer_busy_s
+from ..utils.bgwriter import flush_writes, get_writer, writer_backlog, writer_busy_s
 from ..utils.hull import FastConcaveHull2D
 from ..viz.colormap import apply_float_colormap, print_color
 
@@ -224,6 +224,7 @@ class GFlowTrainer:
         self._last_views = None  # the last diagnostic render, reused once by eval()
         self.pose_list = None    # optional per-frame pose list, saved when set
         self.telemetry = None    # optional utils.profiling.Telemetry
+        self._writer_mark = None  # (telemetry, writer busy seconds at its last record)
         self._last_num_host = 0  # host mirror of state.last_num
         self.last_t_final = None  # residual transmittance on K-overflowing tiles
         # truncation guardrail (see train()): escalate max_per_tile when the
@@ -378,6 +379,8 @@ class GFlowTrainer:
         unless save_videos), still/move renders, move_seg, metrics."""
         has_last = self._last_num_host > 0
         tel = self.telemetry
+        if tel is not None and (self._writer_mark is None or self._writer_mark[0] is not tel):
+            self._writer_mark = (tel, writer_busy_s())
         cfg = StageConfig(
             W=self.W,
             H=self.H,
@@ -512,6 +515,13 @@ class GFlowTrainer:
         if save_ckpt:
             with phase("host/checkpoint"):
                 self.save_checkpoint(ckpt_name=ckpt_name)
+        if tel is not None and save_imgs and self.dir:
+            # the writer's seconds since the last record (summed over its
+            # lanes), and the jobs it has not finished
+            busy = writer_busy_s()
+            tel.add("writer/busy", busy - self._writer_mark[1])
+            tel.count("writer/backlog", writer_backlog())
+            self._writer_mark = (tel, busy)
 
         out["move_seg"] = self.move_seg
         if subsets is not None:
@@ -577,25 +587,29 @@ class GFlowTrainer:
                           as_uint8=as_uint8, device=self.device)
 
     def _save_stage_images(self, views, ckpt_name, subsets=None):
-        """Queue the stage's diagnostic PNGs on the background writer."""
+        """Queue the stage's diagnostic PNGs on the background writer, each
+        keyed by its path (the lanes encode them in parallel)."""
         w = get_writer()
         img_dir = os.path.join(self.dir, "images")
         os.makedirs(img_dir, exist_ok=True)
         for nm, key in (("img", "rgb"), ("img_center", "center"),
                         ("img_depth", "depth_map_color")):
-            w.submit(imwrite, os.path.join(img_dir, f"{nm}_{ckpt_name}.png"), views[key])
+            path = os.path.join(img_dir, f"{nm}_{ckpt_name}.png")
+            w.submit_keyed(path, imwrite, path, views[key])
         if subsets is not None:
             (srgb, scen), (mrgb, mcen) = subsets
             for nm, arr in (("still", srgb), ("still_center", scen),
                             ("move", mrgb), ("move_center", mcen)):
-                w.submit(imwrite, os.path.join(img_dir, f"img_{nm}_{ckpt_name}.png"), arr)
+                path = os.path.join(img_dir, f"img_{nm}_{ckpt_name}.png")
+                w.submit_keyed(path, imwrite, path, arr)
         seg_dir = os.path.join(self.dir, "images_seg")
         for nm, arr in (("move_mask", self.move_seg),
                         ("move_mask_erode", self.move_seg_erode),
                         ("propagate_mask", self.propagate_seg)):
             if arr is not None:
                 os.makedirs(seg_dir, exist_ok=True)
-                w.submit(imwrite, os.path.join(seg_dir, f"{nm}_{ckpt_name}.png"), arr.copy())
+                path = os.path.join(seg_dir, f"{nm}_{ckpt_name}.png")
+                w.submit_keyed(path, imwrite, path, arr.copy())
 
     def flush_io(self):
         """Drain the background writer (fit_video does so at the end of its

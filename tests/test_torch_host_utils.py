@@ -6,6 +6,10 @@ Telemetry, the CLI builder, the background writer and the video writers.
 
 Tolerances: exact throughout, but for apply_float_colormap (1e-6, as in
 test_torch_render)."""
+import sys
+import threading
+import time
+from pathlib import Path
 from types import SimpleNamespace
 
 import matplotlib
@@ -25,6 +29,7 @@ from gflow_tpu.viz import video as j_video
 from gflow_tpu.viz.traj_visualizer import TrajVisualizer as JVis
 from gflow_tpu_torch.pipeline import fit_video as t_fit
 from gflow_tpu_torch.pipeline import trainer as t_trainer
+from gflow_tpu_torch.utils import bgwriter
 from gflow_tpu_torch.utils import hull as t_hull
 from gflow_tpu_torch.utils import profiling as t_prof
 from gflow_tpu_torch.utils import tracking as t_track
@@ -222,6 +227,109 @@ def test_background_writer_orders_and_raises():
         w.flush()
     assert seen[-1] == 5
     w.flush()
+
+
+def flush_within(w, seconds=60):
+    """w.flush() with a time limit: a lane that stopped fails the test
+    rather than hanging it."""
+    box = {}
+
+    def run():
+        try:
+            w.flush()
+        except Exception as e:
+            box["err"] = e
+        box["done"] = True
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(seconds)
+    assert box.get("done"), "the writer did not drain"
+    if "err" in box:
+        raise box["err"]
+
+
+def test_background_writer_keeps_each_keys_order(tmp_path):
+    """200 keyed jobs over 7 files, of uneven lengths, with a short switch
+    interval: each key's jobs run in submission order, and each file holds
+    its last write."""
+    w = BackgroundWriter()
+    rng = np.random.default_rng(0)
+    keys = [str(tmp_path / f"k{i}.txt") for i in range(7)]
+    ran = {k: [] for k in keys}
+    last = {}
+
+    def job(path, i, sleep):
+        time.sleep(sleep)
+        ran[path].append(i)
+        with open(path, "w") as f:
+            f.write(str(i))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for i in range(200):
+            path = keys[rng.integers(len(keys))]
+            last[path] = i
+            w.submit_keyed(path, job, path, i, float(rng.uniform(0, 1e-3)))
+        flush_within(w)
+    finally:
+        sys.setswitchinterval(interval)
+    assert sum(map(len, ran.values())) == 200 and w.backlog == 0
+    for path, got in ran.items():
+        assert got == sorted(got), path
+        assert Path(path).read_text() == str(last[path])
+
+
+def test_background_writer_runs_keys_side_by_side():
+    """Two keyed jobs of different keys, each blocked on an event, have both
+    started before either is let go: they run on two lanes at once."""
+    if bgwriter.lane_count() < 2:
+        pytest.skip("one usable CPU: the writer runs one lane")
+    w = BackgroundWriter()
+    started = [threading.Event(), threading.Event()]
+    release = threading.Event()
+
+    def job(i):
+        started[i].set()
+        assert release.wait(10)
+
+    w.submit_keyed("a.png", job, 0)
+    w.submit_keyed("b.png", job, 1)
+    try:
+        assert started[0].wait(10) and started[1].wait(10)
+        assert w.backlog == 2
+    finally:
+        release.set()
+    flush_within(w)
+    assert w.backlog == 0
+
+
+def test_background_writer_raises_an_error_from_any_lane():
+    """A job that raises on any lane is re-raised by the next flush(), once,
+    and every lane keeps working after it."""
+    w = BackgroundWriter()
+    lanes = bgwriter.lane_count()
+    for bad in range(lanes):
+        seen = []
+
+        def boom():
+            raise RuntimeError(f"lane {bad}")
+
+        # new keys are dealt round-robin and each round deals 3 x lanes of
+        # them, so key j of a round goes to lane j
+        for j in range(lanes):
+            if j == bad:
+                w.submit_keyed(f"{bad}-{j}", boom)
+            else:
+                w.submit_keyed(f"{bad}-{j}", seen.append, j)
+        with pytest.raises(RuntimeError, match=f"lane {bad}"):
+            flush_within(w)
+        flush_within(w)  # raised once
+        for j in range(2 * lanes):
+            w.submit_keyed(f"after-{bad}-{j}", seen.append, lanes + j)
+        flush_within(w)
+        assert sorted(seen) == [j for j in range(3 * lanes) if j != bad]
 
 
 @pytest.mark.parametrize("W", [48, 47])

@@ -158,6 +158,48 @@ def test_writer_busy_seconds_rise_while_a_job_runs():
     assert done >= mid and w.busy_s == done  # idle: it stays put
 
 
+def flush_within(w, seconds=60):
+    """w.flush() with a time limit: a lane that stopped fails the test
+    rather than hanging it."""
+    box = {}
+
+    def run():
+        try:
+            w.flush()
+        except Exception as e:
+            box["err"] = e
+        box["done"] = True
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(seconds)
+    assert box.get("done"), "the writer did not drain"
+    if "err" in box:
+        raise box["err"]
+
+
+def test_writer_busy_seconds_sum_over_lanes():
+    """Two jobs blocked at once on two lanes count their seconds twice."""
+    if bgwriter.lane_count() < 2:
+        pytest.skip("one usable CPU: the writer runs one lane")
+    w = bgwriter.BackgroundWriter()
+    started = [threading.Event(), threading.Event()]
+    go = threading.Event()
+    for i in range(2):
+        w.submit_keyed(i, lambda i=i: started[i].set() or go.wait(10))
+    try:
+        assert started[0].wait(10) and started[1].wait(10)
+        t0 = time.perf_counter()
+        time.sleep(0.05)
+        wait = time.perf_counter() - t0
+        mid = w.busy_s
+        assert mid >= 2 * wait
+    finally:
+        go.set()
+    flush_within(w)
+    assert w.busy_s >= mid
+
+
 # ---------------------------------------------------------------- the trainer
 
 
@@ -252,6 +294,56 @@ def test_writer_busy_in_hull_rises_with_a_slow_job(one_thread):
     busy = tel.phase_seconds["writer/busy_in_hull"]
     assert 0 < busy <= tel.phase_seconds["host/hull_seg"]
     assert tel.phase_calls["writer/busy_in_hull"] == 2
+
+
+def test_stage_pngs_through_the_lanes_equal_serial_writes(tmp_path, monkeypatch, one_thread):
+    """The PNGs two stages of one frame write through the writer's lanes
+    (the second overwriting the first's files) are, byte for byte, the
+    last array queued for each path written by imwrite on this thread."""
+    tr, move = make_trainer(telemetry=False)
+    tr.dir = str(tmp_path / "log")
+    queued = {}
+    submit = bgwriter.BackgroundWriter.submit_keyed
+
+    def spy(self, key, fn, path, arr):
+        queued[path] = np.array(arr)
+        submit(self, key, fn, path, arr)
+
+    monkeypatch.setattr(bgwriter.BackgroundWriter, "submit_keyed", spy)
+    tr.train(iterations=2, lr=1e-2, move_mask=move, save_imgs=True, ckpt_name="00000")
+    tr.train(iterations=2, lr=1e-2, move_mask=move, save_imgs=True, ckpt_name="00001",
+             camera_only=True)
+    tr.train(iterations=2, lr=1e-2, move_mask=move, save_imgs=True, ckpt_name="00001")
+    flush_within(bgwriter.get_writer())
+    written = sorted(str(p) for p in (tmp_path / "log").rglob("*.png"))
+    assert written == sorted(queued) and len(written) >= 2 * 6
+    for i, (path, arr) in enumerate(sorted(queued.items())):
+        serial = tmp_path / f"serial{i}.png"
+        imwrite(serial, arr)
+        assert Path(path).read_bytes() == serial.read_bytes(), path
+
+
+def test_writer_busy_and_backlog_once_per_image_saving_stage(tmp_path, monkeypatch,
+                                                             one_thread):
+    """writer/busy and writer/backlog are recorded at the end of each stage
+    that saved images and of no other; writer/busy sums the writer's busy
+    seconds since the telemetry's first stage."""
+    tr, move = make_trainer(telemetry=True)
+    tr.dir = str(tmp_path / "log")
+    tel = tr.telemetry
+    counts = []
+    monkeypatch.setattr(tel, "count", lambda name, n=1: counts.append((name, n)))
+    flush_within(bgwriter.get_writer())
+    busy0 = bgwriter.writer_busy_s()
+    tr.train(iterations=2, lr=1e-2, move_mask=move, save_imgs=True, ckpt_name="00000")
+    tr.train(iterations=2, lr=1e-2, move_mask=move)
+    flush_within(bgwriter.get_writer())
+    tr.train(iterations=2, lr=1e-2, move_mask=move, save_imgs=True, ckpt_name="00001")
+    assert tel.phase_calls["writer/busy"] == 2
+    assert [name for name, _ in counts] == ["writer/backlog"] * 2
+    assert all(0 <= n <= 10 for _, n in counts)  # at most the stage's 10 files queued
+    flush_within(bgwriter.get_writer())
+    assert 0 <= tel.phase_seconds["writer/busy"] <= bgwriter.writer_busy_s() - busy0
 
 
 def test_no_stamps_without_telemetry(stage_configs, one_thread):
@@ -363,6 +455,7 @@ FIT_READERS = {  # metric: (telemetry key, per, scale)
     "fit.hull_concave_s_per_frame": ("hull/concave", "frames", 1.0),
     "fit.hull_erode_s_per_frame": ("hull/erode", "frames", 1.0),
     "fit.hull_writer_busy_s_per_frame": ("writer/busy_in_hull", "frames", 1.0),
+    "fit.writer_busy_s_per_frame": ("writer/busy", "frames", 1.0),
 }
 PREP_READERS = {
     "prep.depth_align_host_s_per_frame": "prep_depth/align_host",

@@ -58,7 +58,8 @@ makes, at full size and end to end, and times the kernels:
    small_eig 4 times a frame; prep_flow and prep_depth with --mesh-devices
    2 (replicas over the visible cards) against 0 (prep_mesh_hold);
 9. one 64-prompt SAM mask decode (prep_mask.decode's graph), for its
-   launches;
+   launches; prep_track (SAM 2.1 Hiera-L at the released widths) on a
+   4-frame 854x480 sequence, twice, the second run's launches counted;
 10. fit_multi on max(2, count) copies of the fit_video sequence in spawned
    workers (the PSNR floor; their launches are the workers'), and with two
    or more cards fit_video(shard_devices=count) end to end;
@@ -652,15 +653,20 @@ def ssim_rows(inputs, shape=(H, W, 3)):
 SAM_B, SAM_GRID, SAM_C, SAM_I, SAM_T = 64, 64, 256, 128, 7
 
 
-def sam_decoder_work(B, N, C=SAM_C, I=SAM_I, T=SAM_T):
+def sam_decoder_work(B, N, C=SAM_C, I=SAM_I, T=SAM_T, image_each=False, dense_cells=False):
     """fp32 operations and bytes each image-stream kernel's function needs
     (each input byte read once, each output written once), by kernel name.
     An attention: per (prompt, token, head, image row) a dot of 16 and a
     weighted sum of 16 (4 I a (token, row) pair), the scale, max, exp and
-    sum (~5 a head); the norm ~10 a value; stream_init one add a value."""
+    sum (~5 a head); the norm ~10 a value; stream_init one add a value, its
+    image (C, N) or with image_each (B, C, N), its dense prompt (C,) or with
+    dense_cells (B, C, N) (SAM 2's tracked and prompted frames)."""
     att_ops = B * T * N * (4 * I + 5 * 8)
+    each = image_each or dense_cells
+    init_in = (B if image_each else 1) * C * N + (B * C * N if dense_cells else C) + N * C
     return {
-        "sam_stream_init": (C * N + B * N * C, 4 * (2 * C * N + C + 2 * B * N * C)),
+        "sam_stream_init": ((B if each else 1) * C * N + B * N * C,
+                            4 * (init_in + 2 * B * N * C)),
         "sam_t2i_attend": (att_ops, 4 * (2 * B * T * I + 2 * B * N * I)),
         "sam_i2t_attend": (att_ops, 4 * (2 * B * N * I + 2 * B * T * I)),
         "sam_residual_ln": (10 * B * N * C, 4 * (4 * B * N * C + N * C + 2 * C)),
@@ -669,8 +675,10 @@ def sam_decoder_work(B, N, C=SAM_C, I=SAM_I, T=SAM_T):
 
 def sam_rows(inputs):
     """The decoder's four image-stream kernels (ops/sam_decoder.py), each
-    against its plain version at the grid's shapes: max error, also
-    relative to the largest value (1e-5), device ms beside the bytes'
+    against its plain version at the grid's shapes, and sam_stream_init
+    also at SAM 2's (3 objects: an image each, as on a tracked frame; one
+    image and a dense prompt a cell, as on the prompted frame): max error,
+    also relative to the largest value (1e-5), device ms beside the bytes'
     bound and the plain version's ms; for the attentions also torch's
     scaled_dot_product_attention on head-major copies made beforehand
     (library_ms: a yardstick the port never calls)."""
@@ -680,7 +688,7 @@ def sam_rows(inputs):
 
     from gflow_tpu_torch.ops import sam_decoder as sd
 
-    B, N, heads = SAM_B, SAM_GRID ** 2, 8
+    B, N, heads, O = SAM_B, SAM_GRID ** 2, 8, 3
 
     def seeded():
         g = torch.Generator(device="cuda").manual_seed(6)
@@ -688,37 +696,50 @@ def sam_rows(inputs):
 
     r = seeded()
     image, dense, pe = r(1, SAM_C, SAM_GRID, SAM_GRID), r(SAM_C), r(N, SAM_C)
+    images, denses = r(O, SAM_C, SAM_GRID, SAM_GRID), r(O, SAM_C, SAM_GRID, SAM_GRID)
     r = seeded()
     ln_args = (r(B, N, SAM_C), r(B, N, SAM_C), r(SAM_C), r(SAM_C), 1e-5, r(N, SAM_C))
-    # (kernel, plain version, library call's head-major inputs or None)
-    calls = {"sam_stream_init": (partial(sd.stream_init, image, dense, pe, B),
-                                 partial(sd.stream_init_plain, image, dense, pe, B), None),
-             "sam_residual_ln": (partial(sd.residual_ln, *ln_args),
-                                 partial(sd.residual_ln_plain, *ln_args), None)}
+    shape = f"B {B}, N {N}, C {SAM_C}, T {SAM_T}"
+    work, work_o = sam_decoder_work(B, N), f"B {O}, N {N}, C {SAM_C}"
+    # (kernel, input, kernel call, plain version, library call's head-major
+    # inputs or None, (operations, bytes))
+    calls = [("sam_stream_init", shape, partial(sd.stream_init, image, dense, pe, B),
+              partial(sd.stream_init_plain, image, dense, pe, B), None,
+              work["sam_stream_init"]),
+             ("sam_stream_init", f"{work_o}, an image a prompt",
+              partial(sd.stream_init, images, dense, pe, O),
+              partial(sd.stream_init_plain, images, dense, pe, O), None,
+              sam_decoder_work(O, N, image_each=True)["sam_stream_init"]),
+             ("sam_stream_init", f"{work_o}, one image, a dense prompt a cell",
+              partial(sd.stream_init, image, denses, pe, O),
+              partial(sd.stream_init_plain, image, denses, pe, O), None,
+              sam_decoder_work(O, N, dense_cells=True)["sam_stream_init"]),
+             ("sam_residual_ln", shape, partial(sd.residual_ln, *ln_args),
+              partial(sd.residual_ln_plain, *ln_args), None, work["sam_residual_ln"])]
     # the tokens over the image's rows, and the rows over the tokens
     for name, attend, n_q, n_keys in (("sam_t2i_attend", sd.t2i_attend, SAM_T, N),
                                       ("sam_i2t_attend", sd.i2t_attend, N, SAM_T)):
         r = seeded()
         q, k, v = r(B, n_q, SAM_I, scale=2.0), r(B, n_keys, SAM_I), r(B, n_keys, SAM_I)
-        calls[name] = (partial(attend, q, k, v, heads),
-                       partial(sd.cross_attend_plain, q, k, v, heads),
-                       tuple(t.reshape(*t.shape[:2], heads, -1).transpose(1, 2).contiguous()
-                             for t in (q, k, v)))
-    work, out = sam_decoder_work(B, N), {}
-    for name, (kernel, plain, lib) in calls.items():
+        calls.append((name, shape, partial(attend, q, k, v, heads),
+                      partial(sd.cross_attend_plain, q, k, v, heads),
+                      tuple(t.reshape(*t.shape[:2], heads, -1).transpose(1, 2).contiguous()
+                            for t in (q, k, v)), work[name]))
+    out = {}
+    for name, where, kernel, plain, lib, (ops, nbytes) in calls:
         got, want = kernel(), plain()
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
         torch.cuda.synchronize()
         err = max(float((a - c).abs().max()) for a, c in zip(got, want))
         rel = max(float((a - c).abs().max() / c.abs().max()) for a, c in zip(got, want))
-        assert rel <= 1e-5, (name, rel)
-        b_ms, b_by = bound(*work[name])
+        assert rel <= 1e-5, (name, where, rel)
+        b_ms, b_by = bound(ops, nbytes)
         row = dict(ms=kernel_ms(kernel), plain_ms=cuda_ms(plain, reps=5), bound_ms=b_ms,
                    bound_by=b_by, max_abs_err=err, max_rel_err=rel,
                    library_ms=kernel_ms(lambda: F.scaled_dot_product_attention(*lib))
                    if lib else None)
         row["roofline_pct"] = 100 * b_ms / row["ms"]
-        out[name] = {f"B {B}, N {N}, C {SAM_C}, T {SAM_T}": row}
+        out.setdefault(name, {})[where] = row
     return out
 
 
@@ -2376,6 +2397,53 @@ def sam_decode_phase():
     log(f"# SAM decode of {SAM_B} prompts (graph) launches {LAUNCHES_BY_PATH['sam decode']}")
 
 
+TRACK_DIR = os.path.join(FIT_DIR, "track")
+
+
+def track_phase():
+    """prep_track as a user runs it, at SAM 2.1 Hiera-L's released widths
+    (seeded weights, the object score's bias 2 so that the object reads
+    present), on write_sequence's 4 frames (854x480 JPEG) with the moving
+    square's _open.png as the one object, its parts as CUDA graphs: a first
+    run records the graphs, the second's launches are counted as
+    "prep_track": the decoder's four kernels once a frame's decode (frame 0
+    takes its mask as the output, with the mask as a dense prompt a cell;
+    frames 1-3 one image an object); a mask file of the frame's size a
+    frame, the same in both runs."""
+    import shutil
+
+    from PIL import Image
+
+    from gflow_tpu_torch.models.random_weights import seeded_state_dict
+    from gflow_tpu_torch.models.sam2 import Sam2Config, Sam2Model, convert
+    from gflow_tpu_torch.pipeline import prep_track
+
+    shutil.rmtree(TRACK_DIR, ignore_errors=True)
+    seq = str(write_sequence(TRACK_DIR))
+    sd = seeded_state_dict(convert.expected_torch_keys(), 0, 1.0)
+    sd["sam_mask_decoder.pred_obj_score_head.layers.2.bias"].fill_(2.0)
+    model = Sam2Model(Sam2Config())
+    model.load_state_dict(sd, strict=True)
+    model = model.eval().cuda()
+    masks, t = [], []
+    for run in range(2):
+        t0 = time.perf_counter()
+        with counted("prep_track") if run else contextlib.nullcontext():
+            out = prep_track.main(seq, model=model)
+        t.append(time.perf_counter() - t0)
+        masks.append([np.asarray(Image.open(os.path.join(out, f"{f:05d}.png")))
+                      for f in range(4)])
+    assert all(m.shape == (H, W) for m in masks[1]), [m.shape for m in masks[1]]
+    assert all(np.array_equal(a, b) for a, b in zip(*masks)), "prep_track runs differ"
+    launches = LAUNCHES_BY_PATH["prep_track"]
+    log(f"# prep_track, 4 frames of 854x480, 1 object: {t[0]:.1f} s recording, {t[1]:.2f} s "
+        f"replaying; mask pixels {[int((m > 127).sum()) for m in masks[1]]}; launches "
+        f"{launches}")
+    want = {"sam_stream_init": 4, "sam_t2i_attend": 4 * 3, "sam_i2t_attend": 4 * 2,
+            "sam_residual_ln": 4 * 2}
+    assert {k: launches.get(k, 0) for k in want} == want, launches
+
+
 # ---------------------------------------------------------------------------
 # multi-GPU: the scene sweep and the tile-band fit_video
 # ---------------------------------------------------------------------------
@@ -2532,6 +2600,7 @@ def main():
     inputs["viewer"] = timed("viewer", viewer_phase, fit)
     timed("prep", prep_phase)
     timed("sam decode", sam_decode_phase)
+    timed("prep_track", track_phase)
     timed("fit_multi", fit_multi_hold, fit)
     if torch.cuda.device_count() > 1:
         timed("shard_devices", shard_fit_video)

@@ -19,6 +19,13 @@
 //   (C, N) channel-major embedding is read once, through a 32 x 32
 //   shared-memory transpose tile, and each tile's rows are written to all
 //   B prompts; key_pe is the (N, C) token-major positional encoding.
+//   stream_init_each_kernel is the same tile a prompt (a grid of B
+//   layers): SAM 2's tracked frames give each prompt (object) its own
+//   memory-conditioned image, and its prompted frame a dense prompt per
+//   cell (the mask input's embedding), (B, C, N) each. It would compute
+//   SAM's shared call too, but reads the image and key_pe once a prompt:
+//   on an H100 at B = 64, 0.219 ms against this kernel's 0.197-0.201 ms,
+//   so a shared image and (C,) prompt keep the broadcast kernel.
 // - t2i_split_kernel + t2i_combine_kernel, token to image: for each prompt,
 //   head and token, softmax over the N image keys of (q k^T) / 4, times V.
 //   Flash decoding: a block per (prompt, chunk of 256 keys), every head of
@@ -122,6 +129,32 @@ stream_init_kernel(const float* __restrict__ emb, const float* __restrict__ dens
     st4(keys + b * plane + at, k);
     st4(kpe + b * plane + at, kp);
   }
+}
+
+// keys[b, n, c] = emb[b?, c, n] + dense[b?, c(, n)], kpe = keys + pe[n, c]:
+// blockIdx.z is the prompt b; emb_stride (0: one image for all prompts, C N:
+// one each) and dense_cells (0: dense (C,), 1: dense (B, C, N)) say which
+// operands are per prompt
+__global__ void __launch_bounds__(kThreads)
+stream_init_each_kernel(const float* __restrict__ emb, const float* __restrict__ dense,
+                        const float* __restrict__ pe, int N, int C, long long emb_stride,
+                        int dense_cells, float* __restrict__ keys, float* __restrict__ kpe) {
+  __shared__ float tile[kTile][kTile + 1];  // [channel][token]
+  const int n0 = blockIdx.x * kTile, c0 = blockIdx.y * kTile, b = blockIdx.z;
+  const int lane = threadIdx.x & 31;
+  const long long plane = (long long)N * C;
+  const float* img = emb + b * emb_stride;
+  for (int c = threadIdx.x >> 5; c < kTile; c += kWarps) {
+    const long long at = (long long)(c0 + c) * N + n0 + lane;
+    tile[c][lane] = img[at] + (dense_cells ? dense[b * plane + at] : dense[c0 + c]);
+  }
+  __syncthreads();
+  const int tok = threadIdx.x >> 3, q = (threadIdx.x & 7) * 4;
+  const float4 k = make_float4(tile[q][tok], tile[q + 1][tok], tile[q + 2][tok],
+                               tile[q + 3][tok]);
+  const long long at = (long long)(n0 + tok) * C + c0 + q;
+  st4(keys + b * plane + at, k);
+  st4(kpe + b * plane + at, add4(k, ld4(pe + at)));
 }
 
 // Token to image, one block per (chunk of kChunk keys, prompt): the chunk's
@@ -330,15 +363,20 @@ bool batch_ok(int B, int N) { return B >= 1 && B <= 65535 && N >= 1; }
 
 }  // namespace
 
-// keys, kpe (B, N, C) from the embedding emb (C, N), the dense prompt
-// dense (C,) and the positional encoding pe (N, C)
+// keys, kpe (B, N, C) from the embedding emb, (C, N) or with image_each
+// (B, C, N), the dense prompt dense, (C,) or with dense_cells (B, C, N), and
+// the positional encoding pe (N, C); one launch either way
 extern "C" int gflow_sam_stream_init(const float* emb, const float* dense, const float* pe,
-                                     int N, int C, int B, float* keys, float* kpe,
-                                     cudaStream_t stream) {
+                                     int N, int C, int B, int image_each, int dense_cells,
+                                     float* keys, float* kpe, cudaStream_t stream) {
   if (!batch_ok(B, N) || N % kTile || C % kTile || C < kTile || C / kTile > 65535)
     return (int)cudaErrorInvalidValue;
-  stream_init_kernel<<<dim3(N / kTile, C / kTile), kThreads, 0, stream>>>(emb, dense, pe, N, C,
-                                                                         B, keys, kpe);
+  if (!image_each && !dense_cells)
+    stream_init_kernel<<<dim3(N / kTile, C / kTile), kThreads, 0, stream>>>(emb, dense, pe, N,
+                                                                           C, B, keys, kpe);
+  else
+    stream_init_each_kernel<<<dim3(N / kTile, C / kTile, B), kThreads, 0, stream>>>(
+        emb, dense, pe, N, C, image_each ? (long long)N * C : 0LL, dense_cells, keys, kpe);
   return (int)cudaGetLastError();
 }
 

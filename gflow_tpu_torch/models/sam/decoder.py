@@ -4,12 +4,18 @@ prompt_encoder.py``, ``mask_decoder.py``, ``transformer.py``).
 - ``PromptEncoder``: points as random Fourier features of their position
   plus a learned embedding of their label; without a box a padding point
   (label -1) is appended; with no mask input the dense embedding is
-  ``no_mask_embed`` over the whole grid. ``mask_downscaling`` keeps its
-  released keys but is never run (no mask input).
+  ``no_mask_embed`` over the whole grid, with one (SAM 2's prompted frame)
+  ``mask_downscaling`` of the mask.
 - ``MaskDecoder``: the two-way transformer between the prompt tokens
-  ([iou, 4 mask tokens, sparse]) and the image embedding repeated per
-  prompt, the transposed-convolution upscaler, a hypernetwork MLP per mask
-  token and the IoU head.
+  ([iou, 4 mask tokens, sparse]) and the image embedding, one for all
+  prompts or one each, the transposed-convolution upscaler, a
+  hypernetwork MLP per mask token and the IoU head. The configuration's
+  ``sam2_heads`` turns on SAM 2.1's parts (``sam2/modeling/sam/
+  mask_decoder.py`` with ``pred_obj_scores``, ``pred_obj_scores_mlp``,
+  ``use_high_res_features`` and ``iou_prediction_use_sigmoid``): an
+  object-score token before the others and its MLP head, the
+  high-resolution skips ``conv_s0`` / ``conv_s1`` added into the upscaler
+  and a sigmoid on the IoU head.
 
 The transformer's image stream is kept as contiguous (B, h*w, C) token
 rows: ``ops/sam_decoder.py`` makes them (``stream_init``), runs both
@@ -86,10 +92,13 @@ class PromptEncoder(nn.Module):
         pe = pe + torch.where(lab == 0, self.point_embeddings[0].weight, 0.0)
         return pe + torch.where(lab == 1, self.point_embeddings[1].weight, 0.0)
 
-    def dense(self):
-        """(C,): the dense prompt without a mask input, the same at every
-        cell of the grid (upstream expands it to (B, C, h, w))."""
-        return self.no_mask_embed.weight[0]
+    def dense(self, masks=None):
+        """The dense prompt: without a mask input (C,), the same at every
+        cell of the grid (upstream expands it to (B, C, h, w)); of masks
+        (B, 1, 4h, 4w) their embedding (B, C, h, w)."""
+        if masks is None:
+            return self.no_mask_embed.weight[0]
+        return self.mask_downscaling(masks)
 
     def image_pe(self):
         return self.pe_layer.grid(self.grid, self.grid)[None]
@@ -176,8 +185,9 @@ class TwoWayTransformer(nn.Module):
         self.norm_final_attn = nn.LayerNorm(dim)
 
     def forward(self, image, image_pe, tokens, dense):
-        """image, image_pe (1, C, h, w); tokens (B, T, C); dense (C,), added
-        to the image at every cell -> (tokens, image as (B, h*w, C))."""
+        """image (1 or B, C, h, w), image_pe (1, C, h, w); tokens (B, T, C);
+        dense (C,), added to the image at every cell, or (B, C, h, w) ->
+        (tokens, image as (B, h*w, C))."""
         # (N, C) token rows: the prompt encoder's grid PE is laid out so
         # already, and is not copied
         key_pe = image_pe[0].flatten(1).t().contiguous()
@@ -211,30 +221,55 @@ class MaskDecoder(nn.Module):
         super().__init__()
         dim = c.prompt_embed_dim
         self.num_mask_tokens = c.num_multimask_outputs + 1
+        self.sam2_heads = c.sam2_heads
         self.transformer = TwoWayTransformer(c.decoder_depth, dim, c.decoder_num_heads,
                                              c.decoder_mlp_dim, c.attention_downsample_rate)
         self.iou_token = nn.Embedding(1, dim)
         self.mask_tokens = nn.Embedding(self.num_mask_tokens, dim)
+        if c.sam2_heads:
+            self.obj_score_token = nn.Embedding(1, dim)
         self.output_upscaling = nn.Sequential(
             nn.ConvTranspose2d(dim, dim // 4, 2, 2), LayerNorm2d(dim // 4), nn.GELU(),
             nn.ConvTranspose2d(dim // 4, dim // 8, 2, 2), nn.GELU())
+        if c.sam2_heads:
+            self.conv_s0 = nn.Conv2d(dim, dim // 8, 1)
+            self.conv_s1 = nn.Conv2d(dim, dim // 4, 1)
         self.output_hypernetworks_mlps = nn.ModuleList(
             HeadMLP(dim, dim, dim // 8, 3) for _ in range(self.num_mask_tokens))
         self.iou_prediction_head = HeadMLP(dim, c.iou_head_hidden_dim, self.num_mask_tokens,
                                            c.iou_head_depth)
+        if c.sam2_heads:
+            self.pred_obj_score_head = HeadMLP(dim, dim, 1, 3)
 
-    def forward(self, image_embedding, image_pe, sparse, dense):
-        """image_embedding, image_pe (1, C, h, w); sparse (B, N, C); dense
-        (C,) -> all masks (B, 4, 4h, 4w) and IoUs (B, 4)."""
+    def forward(self, image_embedding, image_pe, sparse, dense, high_res=None):
+        """image_embedding (1 or B, C, h, w), image_pe (1, C, h, w); sparse
+        (B, N, C); dense (C,) or (B, C, h, w); with the high-resolution
+        skips, high_res = (feat_s0 (1 or B, C/8, 4h, 4w), feat_s1 (1 or B,
+        C/4, 2h, 2w)), the FPN levels through ``conv_s0`` / ``conv_s1`` ->
+        all masks (B, 4, 4h, 4w), IoUs (B, 4), the mask tokens' outputs (B,
+        4, C) and the object-score logits (B, 1) (None without them)."""
         B = sparse.shape[0]
         out_tokens = torch.cat([self.iou_token.weight, self.mask_tokens.weight], dim=0)
+        if self.sam2_heads:
+            out_tokens = torch.cat([self.obj_score_token.weight, out_tokens], dim=0)
+        s = int(self.sam2_heads)
         tokens = torch.cat([out_tokens[None].expand(B, -1, -1), sparse], dim=1)
         _, c, h, w = image_embedding.shape
         hs, src = self.transformer(image_embedding, image_pe, tokens, dense)
-        mask_out = hs[:, 1:1 + self.num_mask_tokens]
-        up = self.output_upscaling(src.transpose(1, 2).reshape(B, c, h, w))
+        mask_out = hs[:, s + 1:s + 1 + self.num_mask_tokens]
+        src = src.transpose(1, 2).reshape(B, c, h, w)
+        if high_res is None:
+            up = self.output_upscaling(src)
+        else:
+            dc1, ln1, act1, dc2, act2 = self.output_upscaling
+            feat_s0, feat_s1 = high_res
+            up = act2(dc2(act1(ln1(dc1(src) + feat_s1))) + feat_s0)
         hyper = torch.stack([mlp(mask_out[:, i])
                              for i, mlp in enumerate(self.output_hypernetworks_mlps)], dim=1)
         b, cu, hu, wu = up.shape
         masks = (hyper @ up.reshape(b, cu, hu * wu)).reshape(b, -1, hu, wu)
-        return masks, self.iou_prediction_head(hs[:, 0])
+        iou = self.iou_prediction_head(hs[:, s])
+        if self.sam2_heads:
+            iou = torch.sigmoid(iou)
+        score = self.pred_obj_score_head(hs[:, 0]) if self.sam2_heads else None
+        return masks, iou, mask_out, score

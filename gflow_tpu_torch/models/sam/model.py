@@ -55,6 +55,9 @@ class SamConfig:
     num_multimask_outputs: int = 3
     iou_head_depth: int = 3
     iou_head_hidden_dim: int = 256
+    # SAM 2's decoder heads (models/sam2): the object-score token and its
+    # MLP, the high-resolution skips and the sigmoid IoU; off in SAM
+    sam2_heads: bool = False
 
 
 def input_size(h: int, w: int, long_side: int):
@@ -100,5 +103,5 @@ class SamModel(nn.Module):
         with fp32_math():
             pe = self.prompt_encoder
             sparse = pe.sparse(points, labels)
-            masks, iou = self.mask_decoder(embedding, pe.image_pe(), sparse, pe.dense())
+            masks, iou, _, _ = self.mask_decoder(embedding, pe.image_pe(), sparse, pe.dense())
             return masks[:, 1:], iou[:, 1:]

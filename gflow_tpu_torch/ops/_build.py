@@ -52,7 +52,7 @@ KERNELS = {
     "ssim_fwd": ("ssim.cu", "gflow_ssim_fwd", (_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P)),
     "ssim_bwd": ("ssim.cu", "gflow_ssim_bwd", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     "sam_stream_init": ("sam_decoder.cu", "gflow_sam_stream_init",
-                        (_P, _P, _P, _I, _I, _I, _P, _P)),
+                        (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P)),
     "sam_t2i_attend": ("sam_decoder.cu", "gflow_sam_t2i_attend",
                        (_P, _P, _P, _I, _I, _I, _P, _P, _P)),
     "sam_i2t_attend": ("sam_decoder.cu", "gflow_sam_i2t_attend", (_P, _P, _P, _I, _I, _I, _P)),

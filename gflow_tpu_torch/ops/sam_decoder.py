@@ -4,9 +4,10 @@ The decoder's image side is kept as (B, N, C) token rows, N = h * w image
 tokens of C channels for each of B prompts. Between its projections (plain
 ``F.linear`` GEMMs) four functions do the rest of the work:
 
-- ``stream_init``: the embedding (1, C, h, w) repeated per prompt plus the
-  dense prompt (C,), as rows: ``keys``; and ``kpe = keys + key_pe``, with
-  key_pe the (N, C) token-major positional encoding;
+- ``stream_init``: the embedding, (1, C, h, w) repeated per prompt or
+  (B, C, h, w) one a prompt, plus the dense prompt, (C,) at every cell or
+  (B, C, h, w) one a cell, as rows: ``keys``; and ``kpe = keys + key_pe``,
+  with key_pe the (N, C) token-major positional encoding;
 - ``t2i_attend``: token to image, softmax((q k^T) / sqrt(d)) v per head for
   q (B, T, I) and k, v (B, N, I), merged heads (B, T, I);
 - ``i2t_attend``: image to token, the same for q (B, N, I) and k, v
@@ -38,10 +39,11 @@ CHUNK = 256      # image rows a block of the attentions (csrc kChunk)
 
 
 def stream_init_plain(image, dense, key_pe, B: int):
-    """(keys, kpe) (B, N, C): image (1, C, h, w) expanded to B prompts plus
-    dense (C,) at every cell, flattened to token rows (a strided view), and
-    keys + key_pe (N, C)."""
-    keys = (image.expand(B, -1, -1, -1) + dense.reshape(1, -1, 1, 1)).flatten(2).permute(0, 2, 1)
+    """(keys, kpe) (B, N, C): image (1 or B, C, h, w) expanded to B prompts
+    plus dense, (C,) at every cell or (B, C, h, w), flattened to token rows
+    (a strided view), and keys + key_pe (N, C)."""
+    d = dense.reshape(1, -1, 1, 1) if dense.dim() == 1 else dense
+    keys = (image.expand(B, -1, -1, -1) + d).flatten(2).permute(0, 2, 1)
     return keys, keys + key_pe
 
 
@@ -77,19 +79,22 @@ def _check_tokens(fn: str, T: int, heads: int) -> None:
 def stream_init_kernel(image, dense, key_pe, B: int):
     """``stream_init`` through the ``sam_stream_init`` kernel: contiguous
     (B, N, C) keys and kpe."""
-    if image.dim() != 4 or image.shape[0] != 1:
-        raise ValueError(f"stream_init: image must be (1, C, h, w), got {tuple(image.shape)}")
-    _, C, h, w = image.shape
+    if image.dim() != 4 or image.shape[0] not in (1, B):
+        raise ValueError(f"stream_init: image must be (1, C, h, w) or ({B}, C, h, w), got "
+                         f"{tuple(image.shape)}")
+    b, C, h, w = image.shape
     N = h * w
     if C % TILE or N % TILE or B < 1:
         raise ValueError(f"stream_init: the kernel takes C and h * w multiples of {TILE} and "
                          f"B >= 1, got C {C}, h * w {N}, B {B}")
-    _check("stream_init", "image", image, (1, C, h, w))
-    _check("stream_init", "dense", dense, (C,))
+    cells = dense.dim() != 1
+    _check("stream_init", "image", image, (b, C, h, w))
+    _check("stream_init", "dense", dense, (B, C, h, w) if cells else (C,))
     _check("stream_init", "key_pe", key_pe, (N, C))
     keys = torch.empty((B, N, C), dtype=torch.float32, device=image.device)
     kpe = torch.empty_like(keys)
-    _build.launch("sam_stream_init", image, dense, key_pe, N, C, B, keys, kpe)
+    _build.launch("sam_stream_init", image, dense, key_pe, N, C, B, int(b > 1), int(cells),
+                  keys, kpe)
     return keys, kpe
 
 
@@ -137,8 +142,9 @@ def residual_ln_kernel(keys, out, weight, bias, eps: float, key_pe):
 
 
 def stream_init(image, dense, key_pe, B: int):
-    """(keys, kpe) (B, N, C) of the embedding `image` (1, C, h, w), the
-    dense prompt `dense` (C,) and the token-major PE `key_pe` (N, C)."""
+    """(keys, kpe) (B, N, C) of the embedding `image` (1 or B, C, h, w),
+    the dense prompt `dense` ((C,) or (B, C, h, w)) and the token-major PE
+    `key_pe` (N, C)."""
     if image.device.type == "cpu":
         return stream_init_plain(image, dense, key_pe, B)
     return stream_init_kernel(image, dense, key_pe, B)

@@ -1410,3 +1410,98 @@ def test_sam_decode_graphed_equals_eager_and_the_cpu(dev):
         cpu = model.to("cpu")
         want_low, want_iou = prep_mask.decode(cpu, emb.cpu(), pts[:8].cpu(), torch.device("cpu"))
     assert sam_rel(low[:8].cpu(), want_low) <= 1e-4 and sam_rel(iou[:8].cpu(), want_iou) <= 1e-4
+
+
+@pytest.mark.parametrize("per_prompt_image", [True, False])
+def test_sam_stream_init_per_prompt_image_or_dense_cells(dev, per_prompt_image):
+    """SAM 2's shapes at 3 prompts over 64 x 64 x 256: a (3, C, h, w) image
+    (a tracked frame's objects) with the (C,) dense prompt, or one image
+    with a (3, C, h, w) dense prompt (the prompted frame's masks); one
+    launch, bitwise the plain version."""
+    from gflow_tpu_torch.ops import sam_decoder as sd
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev)
+    B = 3
+    image = r(B if per_prompt_image else 1, 256, 64, 64)
+    dense = r(256) if per_prompt_image else r(B, 256, 64, 64)
+    pe = r(4096, 256)
+    _build.LAUNCHES.clear()
+    keys, kpe = sd.stream_init(image, dense, pe, B)
+    want_keys, want_kpe = sd.stream_init_plain(image, dense, pe, B)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"sam_stream_init": 1}
+    assert torch.equal(keys, want_keys) and torch.equal(kpe, want_kpe)
+
+
+def sam2_small(dev, seed=0):
+    """SAM 2 with its released decoder, memory and neck widths (256, memory
+    64: the decoder kernels' widths) on a 2-block 16-wide Hiera at a 256
+    input (a 16 x 16 embedding), a bank of 3 memories and 4 pointers."""
+    from gflow_tpu_torch.models.random_weights import seeded_state_dict
+    from gflow_tpu_torch.models.sam2 import Sam2Config, Sam2Model, convert
+
+    cfg = Sam2Config(embed_dim=16, num_heads=1, stages=(1, 1, 1, 1), global_att_blocks=(2,),
+                     window_spec=(8, 4, 4, 2), image_size=256, num_maskmem=3,
+                     max_obj_ptrs_in_encoder=4, memattn_layers=2)
+    sd = seeded_state_dict(convert.expected_torch_keys(cfg), seed, 1.0)
+    sd["sam_mask_decoder.pred_obj_score_head.layers.2.bias"].fill_(1.0)
+    for k in sd:
+        if k.endswith(".gamma"):
+            sd[k].fill_(0.5)
+    model = Sam2Model(cfg)
+    model.load_state_dict(sd, strict=True)
+    return model.eval().to(dev)
+
+
+def test_sam2_propagation_graphed_equals_eager(dev, tmp_path):
+    """prep_track.main over 7 frames of 3 objects with its parts as CUDA
+    graphs against the same run eager: the written masks and every frame's
+    memory and pointer 0 apart; the memory attention records one graph per
+    fill of the bank (frames 1-4) and frames 4-6 replay one; the decoder's
+    stream_init takes the per-cell dense prompt on frame 0 and per-object
+    images after."""
+    from PIL import Image
+
+    from gflow_tpu_torch.models.sam2 import MemoryBank
+    from gflow_tpu_torch.opt import graphs
+    from gflow_tpu_torch.pipeline import prep_track
+
+    seq = tmp_path / "seq"
+    seq.mkdir()
+    g = np.random.default_rng(3)
+    for t in range(7):
+        Image.fromarray(g.integers(0, 256, (96, 160, 3), dtype=np.uint8)).save(
+            seq / f"{t:05d}.png")
+    ann = np.zeros((96, 160), np.uint8)
+    ann[10:50, 20:80], ann[40:90, 90:150], ann[60:80, 10:40] = 1, 2, 3
+    img = Image.fromarray(ann, mode="P")
+    img.putpalette([0, 0, 0, 128, 0, 0, 0, 128, 0, 0, 0, 128] + [0] * 756)
+    img.save(tmp_path / "ann.png")
+    model = sam2_small(dev)
+    stored = []
+    store = MemoryBank.store
+
+    def record(self, t, memory, pointer):
+        stored.append((memory.cpu(), pointer.cpu()))
+        store(self, t, memory, pointer)
+
+    caches = []
+
+    def run():
+        stored.clear()
+        prep_track.TRACK_GRAPHS = graphs.ForwardCache("sam2", 32)
+        caches.append(prep_track.TRACK_GRAPHS)
+        out = prep_track.main(str(seq), annotation=str(tmp_path / "ann.png"), model=model)
+        masks = [np.asarray(Image.open(f"{out}/{t:05d}.png")) for t in range(7)]
+        return masks + [a for pair in stored for a in pair]
+
+    orig, kept = MemoryBank.store, prep_track.TRACK_GRAPHS
+    MemoryBank.store = record
+    try:
+        replays = graph_vs_eager(run, launched=("sam_stream_init", "sam_t2i_attend"))
+    finally:
+        MemoryBank.store, prep_track.TRACK_GRAPHS = orig, kept
+    assert replays["sam2"] == 7 + 1 + 6 + 6 + 7
+    # the graphed run's cache (the eager run's records none)
+    assert len([k for k in caches[0].entries if "memattn" in k[0]]) == 4

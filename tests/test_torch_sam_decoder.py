@@ -100,6 +100,31 @@ def upstream_transformer(tr, image, image_pe, tokens, dense):
 
 # --- the plain versions ----------------------------------------------------
 
+def test_stream_init_plain_is_bitwise_sams_formula():
+    """SAM's call, one (1, C, h, w) image and a (C,) dense prompt, is the
+    formula it was before the per-prompt shapes, bit for bit."""
+    image, dense, pe = randn(1, DIM, GRID, GRID), randn(DIM, seed=2), grid_pe(DIM)
+    key_pe = pe[0].flatten(1).t()
+    keys, kpe = sd.stream_init_plain(image, dense, key_pe, 64)
+    before = (image.expand(64, -1, -1, -1) + dense.reshape(1, -1, 1, 1)).flatten(2).permute(0, 2, 1)
+    assert torch.equal(keys, before) and torch.equal(kpe, before + key_pe)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_stream_init_plain_per_prompt_image_and_cells(shared):
+    """SAM 2's shapes: a (B, C, h, w) image (a tracked frame's objects) or
+    one image and a (B, C, h, w) dense prompt (the prompted frame's
+    masks)."""
+    B = 3
+    image = randn(1 if shared else B, DIM, GRID, GRID)
+    dense = randn(B, DIM, GRID, GRID, seed=2) if shared else randn(DIM, seed=2)
+    pe = grid_pe(DIM)
+    keys, kpe = sd.stream_init(image, dense, pe[0].flatten(1).t(), B)
+    d = dense if shared else dense.reshape(1, -1, 1, 1).expand(B, -1, GRID, GRID)
+    want = (image.expand(B, -1, -1, -1) + d).flatten(2).permute(0, 2, 1)
+    assert torch.equal(keys, want) and torch.equal(kpe, want + pe[0].flatten(1).t())
+
+
 @pytest.mark.parametrize("B", [1, 3, 64])
 def test_stream_init_plain_is_the_expanded_sum(B):
     image, dense, pe = randn(1, DIM, GRID, GRID), randn(DIM, seed=2), grid_pe(DIM)
@@ -262,8 +287,10 @@ class Emulated:
             want = {_build._P: torch.Tensor, _build._I: int, _build._F: float}[t]
             assert isinstance(a, want), (name, a, t)
         if name == "sam_stream_init":
-            image, dense, pe, n, C, B, keys, kpe = args
-            assert (n, C) == pe.shape and image.shape == (1, C, *image.shape[2:])
+            image, dense, pe, n, C, B, image_each, dense_cells, keys, kpe = args
+            assert (n, C) == pe.shape and image.shape == (B if image_each else 1, C,
+                                                          *image.shape[2:])
+            assert dense.shape == ((B, C, *image.shape[2:]) if dense_cells else (C,))
             k, kp = sd.stream_init_plain(image, dense, pe, B)
             keys.copy_(k)
             kpe.copy_(kp)
